@@ -7,7 +7,7 @@ process state" to "first retrieval result" along both cold paths:
      (the reference's only path — ~100 s at 1M docs on its hardware);
   2. sidecar: mmap the packed matrix straight to the device.
 
-Appends results to BENCHMARKS.md.
+Appends a markdown row to ``--out`` (default ``cold_start.md``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,8 +28,11 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--n", type=int, default=200_000)
     parser.add_argument("--dim", type=int, default=1536)
-    parser.add_argument("--db", default="/tmp/coldstart.sqlite")
-    parser.add_argument("--out", default="BENCHMARKS.md")
+    parser.add_argument(
+        "--db",
+        default=str(Path(tempfile.gettempdir()) / "coldstart.sqlite"),
+    )
+    parser.add_argument("--out", default="cold_start.md")
     args = parser.parse_args()
 
     from svs_tpu import KB

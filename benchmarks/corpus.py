@@ -21,11 +21,18 @@ import os
 import time
 import zlib
 from pathlib import Path
-from typing import Awaitable, Callable, List
+from typing import Awaitable, Callable, Iterator, List
 
 import numpy as np
 
-CACHE_DIR = Path(os.environ.get("SVS_TPU_BENCH_CACHE", "/tmp/svs_tpu_bench"))
+#: Built corpora live at a fixed git-ignored path inside the checkout
+#: (``SVS_TPU_BENCH_CACHE`` overrides it).
+CACHE_DIR = Path(
+    os.environ.get(
+        "SVS_TPU_BENCH_CACHE",
+        Path(__file__).resolve().parent.parent / ".cache" / "bench",
+    )
+)
 
 #: Insert batch: one executemany per chunk keeps the transaction hot
 #: without holding 6 GB of blobs in RAM.
@@ -73,6 +80,46 @@ def query_embedder(dim: int, seed: int = 7) -> "Callable[[List[str]], Awaitable[
     return embed
 
 
+def corpus_blocks(
+    n: int, dim: int, seed: int = 7, dupe_frac: float = 0.0
+) -> "Iterator[np.ndarray]":
+    """The bench corpus's rows, ``[count, dim]`` f32 per insert chunk, in
+    insertion order: row ``i`` is document ``'doc <i>'`` with embedding
+    id ``i + 1``.  Deterministic in ``(n, dim, seed, dupe_frac)``, so a
+    reference can regenerate the exact stored vectors."""
+    rng = np.random.default_rng(seed)
+    done = 0
+    while done < n:
+        count = min(_CHUNK, n - done)
+        block = _rows(rng, count, dim)
+        # Each dupe needs a distinct non-dupe source row in the
+        # chunk, so at most half the chunk can be dupes.
+        n_dupes = min(int(count * dupe_frac), count // 2)
+        if n_dupes:
+            # Last n_dupes rows become perturbed copies of distinct
+            # earlier rows in this chunk: cos ~ 1/sqrt(1+0.35^2).
+            srcs = rng.permutation(count - n_dupes)[:n_dupes]
+            noise = rng.standard_normal((n_dupes, dim)).astype(np.float32)
+            noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+            dup = block[srcs] + 0.35 * noise
+            dup /= np.linalg.norm(dup, axis=1, keepdims=True)
+            block[count - n_dupes:] = dup
+        yield block
+        done += count
+
+
+def corpus_matrix(
+    n: int, dim: int, seed: int = 7, dupe_frac: float = 0.0
+) -> np.ndarray:
+    """All of :func:`corpus_blocks` as one ``[n, dim]`` f32 matrix."""
+    out = np.empty((n, dim), np.float32)
+    done = 0
+    for block in corpus_blocks(n, dim, seed, dupe_frac):
+        out[done : done + len(block)] = block
+        done += len(block)
+    return out
+
+
 def ensure_bench_kb(
     n: int, dim: int, seed: int = 7, dupe_frac: float = 0.0
 ) -> Path:
@@ -103,32 +150,15 @@ def ensure_bench_kb(
     t0 = time.perf_counter()
     if path.exists():
         path.unlink()
-    rng = np.random.default_rng(seed)
     db = Database(path)
-    db.check_or_set_schema_version()
     try:
         with db.transaction() as tx:
             tx.set_key(
                 "embedding_func_params", '{"provider": "mock"}'
             )
             done = 0
-            while done < n:
-                count = min(_CHUNK, n - done)
-                block = _rows(rng, count, dim)
-                # Each dupe needs a distinct non-dupe source row in the
-                # chunk, so at most half the chunk can be dupes.
-                n_dupes = min(int(count * dupe_frac), count // 2)
-                if n_dupes:
-                    # Last n_dupes rows become perturbed copies of distinct
-                    # earlier rows in this chunk: cos ~ 1/sqrt(1+0.35^2).
-                    srcs = rng.permutation(count - n_dupes)[:n_dupes]
-                    noise = rng.standard_normal((n_dupes, dim)).astype(
-                        np.float32
-                    )
-                    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
-                    dup = block[srcs] + 0.35 * noise
-                    dup /= np.linalg.norm(dup, axis=1, keepdims=True)
-                    block[count - n_dupes:] = dup
+            for block in corpus_blocks(n, dim, seed, dupe_frac):
+                count = len(block)
                 blobs = matrix_rows_to_blobs(block)
                 tx.add_docs_bulk(
                     [f"doc {done + i}" for i in range(count)], blobs

@@ -7,7 +7,7 @@ widen ladder) across filter selectivities.  The corpus texts are
 re-embedding anything; the design predicts O(log4(mod)) search rounds
 (kb._filter_round) with the prefix m growing 4x per round from 4n.
 
-Run on the TPU box:  python benchmarks/tpu_filtered.py [n_docs] [batch]
+Run on the GPU:  python benchmarks/filtered.py [n_docs] [batch]
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ Per precision, at 1M x 1536 k=100:
 The bf16 sidecar is saved/restored around the int8 run so the cached
 benchmark corpus keeps its bf16 sidecar for later runs.
 
-Run:  python benchmarks/tpu_fullstack_ab.py [n_docs]
+Run:  python benchmarks/fullstack_ab.py [n_docs]
 """
 import asyncio
 import shutil

@@ -1,21 +1,18 @@
 """Full-KB pairwise dedup benchmark: flat-random vs dupe-planted corpus.
 
-The raw-op shootout (``tpu_pairwise_keyed.py``, BENCHMARKS.md 2026-08-18)
-showed the keyed candidate pass is 4.2x the exact blocked path at 100k,
-but flat-random corpora are near-adversarial for the rescore margin: the
-exact k-th pair sits in the bulk distribution's extreme tail, so the
-keyed pass's hidden boundary bound lands within ~2e-3 of it.  Real dedup
-corpora (the tool's actual use, reference ``svs/kb.py``
-``document_top_pairwise_scores``) have the opposite shape — near-dupes
-at cos ~0.94 vs a ~0.16 bulk — so the margin clears by ~0.8 and the
-keyed route wins end-to-end at first attempt.
+Flat-random corpora are near-adversarial for the pairwise rescore
+margin: the exact k-th pair sits in the bulk distribution's extreme
+tail.  Real dedup corpora (the tool's actual use, reference
+``svs/kb.py`` ``document_top_pairwise_scores``) have the opposite shape
+— near-dupes at cos ~0.94 vs a ~0.16 bulk — so the margin clears at the
+first attempt.
 
 This script measures ``KB.document_top_pairwise_scores`` (the WHOLE
-verified pipeline: keyed candidates -> f32 rescore -> margin check ->
+verified pipeline: blocked candidates -> f32 rescore -> margin check ->
 widen-retry if needed -> hydration) on both corpus shapes, counting
 widen retries via the kb log.
 
-Run on the TPU box:  python benchmarks/tpu_pairwise_kb.py [n] [k]
+Run on the GPU:  python benchmarks/pairwise_kb.py [n] [k]
 """
 
 from __future__ import annotations

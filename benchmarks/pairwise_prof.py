@@ -3,11 +3,11 @@
 Times, on the real device (chained where possible, else repeated e2e):
 
   1. full pairwise_topk_blocked (m=64 attempt)     — the headline number
-  2. matmul+mask scan only (no selection, no merge) — the MXU floor
+  2. matmul+mask scan only (no selection, no merge) — the matmul floor
   3. matmul+mask+select scan (collect, no final merge)
   4. the final flat lax.top_k merge alone at the collected width
 
-Run on the TPU box: python benchmarks/tpu_pairwise_prof.py [n] [k]
+Run on the GPU: python benchmarks/pairwise_prof.py [n] [k]
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from svs_tpu.ops.pairwise import _pairwise_attempt, select_rows_topm
+from svs_tpu.ops.pairwise import _pairwise_attempt
 from svs_tpu.ops.topk import NEG_INF, scores_matmul
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
@@ -59,7 +59,7 @@ def scan_stages(docs, n_valid, with_select):
         live = (col_ids > row_ids) & (col_ids < n_valid) & (row_ids < n_valid)
         scores = jnp.where(live, scores, NEG_INF)
         if with_select:
-            blk_vals, blk_cols = select_rows_topm(scores, M)
+            blk_vals, blk_cols = jax.lax.top_k(scores, M)
             return carry + jnp.max(blk_vals[:, -1]), (
                 blk_vals.reshape(-1),
                 blk_cols.reshape(-1),

@@ -18,7 +18,7 @@ patched cost (a dict hit) matches the real warm-index cost; the one-off
 index build scan is reported separately by its real implementation in
 ``tests/test_filter_prefilter.py`` corpora.
 
-Run on the TPU box:  python benchmarks/tpu_prefilter.py [n_docs] [batch]
+Run on the GPU:  python benchmarks/prefilter.py [n_docs] [batch]
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ measurement: one event loop on one core capped the layer at ~228 QPS
 @1M while the device sustained ~39k).  On a 1-vCPU harness the workers
 oversubscribe one core, so the expected result there is ~flat — the row
 is still worth recording because it pins the ceiling to the core count,
-not to the architecture.
+not to the architecture.  Workers run only on the CPU backend (each
+starts its own JAX client; see ``serve.run_server``), so the servers
+here are started with ``JAX_PLATFORMS=cpu``.
 
 Run:  python benchmarks/serve_workers_scaling.py [n_docs] [clients] [seconds] [workers...]
 """
@@ -25,6 +27,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -122,8 +125,10 @@ def main() -> None:
             "--port", str(port), "--workers", str(workers),
             "--precision", "auto", "--max-batch", "64",
         ]
-        env = dict(os.environ)
-        errlog = open(f"/tmp/serve_workers_{workers}.log", "w")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        errlog = open(
+            Path(tempfile.gettempdir()) / f"serve_workers_{workers}.log", "w"
+        )
         proc = subprocess.Popen(
             cmd, env=env, stderr=errlog,
             start_new_session=True,

@@ -1,9 +1,9 @@
-"""Silicon oracle stress: the FULL retrieve pipeline vs exhaustive NumPy.
+"""On-device oracle stress: the FULL retrieve pipeline vs exhaustive NumPy.
 
 Randomized end-to-end soundness evidence on real hardware: for a grid of
 corpora (precision x shape, with planted adversarial structure) and
-(batch, k) combos, drive ``KB.retrieve_batch`` — embed, guarded/keyed
-prescore kernels, on-device f32 rescore + final selection, margin proof,
+(batch, k) combos, drive ``KB.retrieve_batch`` — embed, the device
+prescore, on-device f32 rescore + final selection, margin proof,
 widen-and-retry, width-hint adaptation, hydration — and verify every
 result against the obviously-correct host oracle (exact f32 scores +
 the reference tie rule, ``/root/reference/src/svs/util.py:190-203``).
@@ -28,12 +28,13 @@ Verification per query (tolerant only to f32 summation-order ties):
   differently than BLAS);
 - planted exact ties surface largest-emb-id first.
 
-Run on the TPU: ``python benchmarks/tpu_stress_oracle.py [trials_seed]``
+Run on the GPU: ``python benchmarks/stress_oracle.py [trials_seed]``
 """
 
 from __future__ import annotations
 
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,18 +46,16 @@ from svs_tpu import KB  # noqa: E402
 from svs_tpu.store.blob import matrix_rows_to_blobs  # noqa: E402
 from svs_tpu.store.db import Database  # noqa: E402
 
-WORK = Path("/tmp/svs_tpu_stress")
+WORK = Path(tempfile.gettempdir()) / "svs_tpu_stress"
 
 import os
 
 if os.environ.get("SVS_STRESS_MICRO"):
     # Default-suite tier (seconds on a 1-vCPU CPU backend): the full
     # KB pipeline oracle — adversarial ties, margin widen, hints,
-    # hydration — at shapes below the pallas kernels' block floor, so
-    # the XLA dispatch routes run.  The kernel routes are covered by
-    # their own default-suite miniatures (tests/test_pallas_extract.py,
-    # tests/test_ops.py); the SMOKE tier (weekly) runs the kernels
-    # inside this same harness at block-aligned shapes.
+    # hydration — on the CPU backend's XLA routes.  The fused GPU
+    # kernel is covered by tests/test_fused_topk.py (interpreter) and
+    # chip_smoke.py (on the card).
     CORPORA = [
         ("bf16", 2_048 + 117, 64, None),
         ("f32", 1_024 + 33, 64, None),
@@ -89,10 +88,9 @@ else:
         ("f32", 30_000, 512, None),
         ("bf16", 40_000, 768, 4),  # replica fan-out (degrades to the
         # available device count; exercises slice-level dispatch + eps)
-        # 106 fused blocks (> GUARD_STAGE_MIN_BLOCKS): the guarded
-        # kernels' STAGED pass-2 finish, oracle-checked through the full
-        # engine — the smaller corpora above never reach it.  Few combos
-        # (the host-side exhaustive oracle costs ~0.2 s/query here).
+        # a large corpus: thousands of fused-kernel tiles, so the merge
+        # and its coverage check run at scale.  Few combos (the
+        # host-side exhaustive oracle costs ~0.2 s/query here).
         ("bf16", 852_000, 128, None, [(256, 100), (16, 10)]),
         ("int8", 852_000, 128, None, [(256, 100)]),
     ]

@@ -1,4 +1,4 @@
-"""Fully on-device pipeline: embed AND retrieve on the same TPU chip.
+"""Fully on-device pipeline: embed AND retrieve on the same device.
 
 The reference can only embed through remote HTTP APIs; here the encoder
 itself runs under JAX on the retrieval device via
@@ -27,8 +27,8 @@ def _make_tiny_checkpoint() -> None:
 
     MODEL.mkdir(parents=True)
     vocab = (
-        "[PAD] [UNK] [CLS] [SEP] [MASK] the a of is unit matrix tpu "
-        "systolic array sqlite database cosine similarity dot product "
+        "[PAD] [UNK] [CLS] [SEP] [MASK] the a of is unit matrix gpu "
+        "tensor cores small tiles sqlite database cosine similarity dot product "
         "vectors multiply matrices single file embedded how does"
     ).split()
     (MODEL / "vocab.txt").write_text("\n".join(vocab) + "\n")
@@ -51,17 +51,17 @@ embed = make_local_embeddings_func(
     str(MODEL),
     pooling="mean",
     max_length=32,
-    compute_dtype="float32",  # 'bfloat16' for MXU-rate on TPU
+    compute_dtype="float32",  # 'bfloat16' for tensor-core rate
 )
 
 kb = KB("local_kb.sqlite", embed, force_fresh_db=True)
 
 with kb.bulk_add_docs() as add_doc:
-    add_doc("The TPU's matrix unit is a 128x128 systolic array.")
+    add_doc("The GPU's tensor cores multiply small matrix tiles.")
     add_doc("SQLite is a single-file embedded database.")
     add_doc("Cosine similarity of unit vectors is a dot product.")
 
-for hit in kb.retrieve("how does the TPU multiply matrices?", n=2):
+for hit in kb.retrieve("how does the GPU multiply matrices?", n=2):
     print(f"{hit['score']:+.4f}  {hit['doc']['text']}")
 
 kb.close(vacuum=True)

@@ -33,7 +33,7 @@ CELLS = [
         "(all outputs below are recorded from a run of this notebook).  "
         "It mirrors the reference implementation's Dad Jokes flow — build "
         "a knowledge base, query it, filter near-duplicates, publish the "
-        "artifact, reopen it from a URL — on the TPU-native engine.\n"
+        "artifact, reopen it from a URL — on the device engine.\n"
         "\n"
         "The corpus here is a checked-in set of ~100 proverbs with a "
         "local deterministic embedder, so the notebook runs hermetically "
@@ -108,7 +108,7 @@ for hit in kb.retrieve("fortune and bravery", n=3):
     ),
     code(
         """
-# batched: many queries, ONE device step (the TPU-native hot path)
+# batched: many queries, ONE device step (the device hot path)
 batch = kb.retrieve_batch(["early riser", "too many chefs", "home sweet home"], n=1)
 for query, hits in zip(["early riser", "too many chefs", "home sweet home"], batch):
     print(f"{query!r:20} -> {hits[0]['doc']['text']}")

@@ -18,11 +18,11 @@ load_env()  # pick up OPENAI_API_KEY etc. from a local .env, if present
 kb = KB("quickstart.sqlite", make_mock_embeddings_func(), force_fresh_db=True)
 
 with kb.bulk_add_docs() as add_doc:
-    add_doc("The TPU's matrix unit is a 128x128 systolic array.")
+    add_doc("The GPU's tensor cores multiply small matrix tiles.")
     add_doc("SQLite is a single-file embedded database.")
     add_doc("Cosine similarity of unit vectors is a dot product.")
 
-for hit in kb.retrieve("how does the TPU multiply matrices?", n=2):
+for hit in kb.retrieve("how does the GPU multiply matrices?", n=2):
     print(f"{hit['score']:+.4f}  {hit['doc']['text']}")
 
 kb.close(vacuum=True, also_gzip=True)  # publishes quickstart.sqlite.gz

@@ -1,10 +1,10 @@
-"""svs_tpu — a TPU-native vector knowledge base.
+"""svs_tpu — an exact vector knowledge base on JAX.
 
 A self-describing single-file store for documents, unit-norm embedding
 vectors, parent/child hierarchy, a general document graph, and a key/value
 store — with exact cosine retrieval running as a fused matmul + top-k on
-TPU via JAX/XLA/Pallas, scaling across chips by sharding the corpus over a
-device mesh.
+the accelerator (an NVIDIA GPU; the CPU for tests) via JAX/XLA/Pallas,
+scaling across devices by sharding the corpus over a device mesh.
 
 Drop-in capability parity with Rhobota/svs (the reference implementation;
 see SURVEY.md): the same public API (``KB``, ``AsyncKB``, the embedding

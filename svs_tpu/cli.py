@@ -186,8 +186,8 @@ def cmd_gzip(args: argparse.Namespace) -> int:
 def cmd_warm(args: argparse.Namespace) -> int:
     """Bring a node to steady state before putting it in service: pack
     (sidecar when present), pre-compile the search pipeline for the
-    requested batch shapes, wait out the background pack/mirror uploads,
-    and leave any dispatch-calibration probes persisted."""
+    requested batch shapes, and wait out the background pack/mirror
+    uploads."""
     import time as _time
 
     from .serve import warm_bucket_ladder
@@ -324,8 +324,8 @@ def main(argv: "Optional[List[str]]" = None) -> int:
     p = sub.add_parser(
         "warm",
         help="pre-compile search shapes + settle uploads (run before "
-        "putting a node in service; persists compile + calibration "
-        "caches for every later process)",
+        "putting a node in service; persists the compile cache for "
+        "every later process)",
     )
     p.add_argument("db")
     p.add_argument("--batches", default=None,
@@ -367,8 +367,8 @@ def main(argv: "Optional[List[str]]" = None) -> int:
     p.add_argument("--workers", type=int, default=1,
                    help="fork N serving processes sharing the port via "
                    "SO_REUSEPORT — scales the HOST side (HTTP/JSON/"
-                   "hydration) with cores; a single local TPU stays "
-                   "single-process, see serve.run_server docs")
+                   "hydration) with cores; CPU backend only (a GPU "
+                   "belongs to one process), see serve.run_server docs")
     p.set_defaults(fn=cmd_serve)
 
     sub.add_parser("bench", help="run the benchmark harness (see bench.py)")

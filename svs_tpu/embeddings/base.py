@@ -2,7 +2,7 @@
 
 The whole framework relies on one invariant: *stored vectors are unit-norm*,
 so cosine similarity is a plain dot product (no per-query normalization on
-the hot path, and the TPU kernel is a pure matmul).  The guard below wraps
+the hot path, and the device kernel is a pure matmul).  The guard below wraps
 every embedding function at use time and rejects out-of-spec vectors
 (reference: ``svs/embeddings/util.py:26-41``, tolerance at ``svs/kb.py:58``).
 """

@@ -2,7 +2,7 @@
 
 The reference can only embed through remote HTTP services
 (``svs/embeddings/__init__.py:19-31`` offers mock/openai/ollama); this
-provider makes the framework self-contained on TPU — the same chip that
+provider makes the framework self-contained on the accelerator — the same device that
 scores the corpus computes the embeddings, with no network, no API key,
 and no per-token billing.
 
@@ -16,9 +16,9 @@ on-device.  Outputs are float32 lists matching the
 ``__embedding_func_params__`` tag round-trips through a database like
 every other provider (``svs/kb.py:896-922``).
 
-TPU notes: ``compute_dtype='bfloat16'`` (the default) runs the matmuls
-on the MXU at full rate with f32 parameters left intact; pass
-``'float32'`` for bit-stable CPU-vs-TPU parity at half the throughput.
+Precision: ``compute_dtype='bfloat16'`` (the default) runs the matmuls
+on the tensor cores at full rate with f32 parameters left intact; pass
+``'float32'`` for bit-stable CPU-vs-device parity at lower throughput.
 The compute dtype changes the embedding VALUES, so it is part of the
 provider's identity params.
 """
@@ -181,7 +181,7 @@ def make_local_embeddings_func(
     ``model`` is a Hugging Face hub name or a local directory holding a
     Flax checkpoint + tokenizer.  ``pooling`` is ``'mean'``
     (mask-weighted token mean) or ``'cls'``.  ``compute_dtype`` selects
-    the forward-pass matmul precision (``'bfloat16'`` for MXU rate,
+    the forward-pass matmul precision (``'bfloat16'`` for tensor-core rate,
     ``'float32'`` for exactness) and is part of the provider identity —
     it changes the produced vectors.  ``batch_size`` and the internal
     power-of-two padding buckets only affect throughput.

@@ -1,4 +1,4 @@
-"""The TPU retrieval engine.
+"""The device retrieval engine.
 
 Where the reference keeps a lazily-built NumPy matrix in RAM
 (``svs/kb.py:856-893``) and dots against it on the CPU, this engine keeps

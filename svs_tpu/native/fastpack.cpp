@@ -1,6 +1,6 @@
 // fastpack: native host-side kernels for the svs_tpu packing pipeline.
 //
-// The TPU owns the query hot path; these C++ kernels own the *host* hot
+// The device owns the query hot path; these C++ kernels own the *host* hot
 // paths around it, where single-threaded NumPy/Python would otherwise
 // bottleneck cold starts on large corpora:
 //

@@ -2,9 +2,10 @@
 
 All functions here are pure, jittable, and shape-static (``k`` and tile
 sizes are Python ints; document counts are padded).  They are the single
-source of the math used by the engine, the sharded path, and the Pallas
-kernels — each alternative implementation is tested for equivalence against
-the NumPy oracle in :mod:`svs_tpu.utils.topk_np`.
+source of the math used by the engine, the sharded path, and the fused
+GPU kernel (:mod:`svs_tpu.ops.fused_topk`) — each alternative
+implementation is tested for equivalence against the NumPy oracle in
+:mod:`svs_tpu.utils.topk_np`.
 """
 
 from .topk import (
@@ -18,45 +19,15 @@ from .topk import (
     streaming_score_topk,
     verified_topk,
 )
-from .pairwise import pairwise_candidates_keyed, pairwise_topk_blocked
+from .pairwise import pairwise_topk_blocked
 from .quant import (
     quantize_rows_int8,
     score_topk_int8,
     score_topk_int8_fast,
     score_topk_int8_packed,
 )
-from .pallas_extract import (
-    extract_supported,
-    extract_topk,
-    fused2_supported,
-    fused3_candidates,
-    fused3_candidates_int8,
-    fused3_supported,
-    fused_supported,
-    score_topk_extract_packed,
-    score_topk_fused2_int8_packed,
-    score_topk_fused2_packed,
-    score_topk_fused3_int8_packed,
-    score_topk_fused3_packed,
-    score_topk_fused_int8_packed,
-    score_topk_fused_packed,
-)
 
 __all__ = [
-    "extract_supported",
-    "extract_topk",
-    "fused2_supported",
-    "fused3_candidates",
-    "fused3_candidates_int8",
-    "fused3_supported",
-    "fused_supported",
-    "score_topk_extract_packed",
-    "score_topk_fused2_int8_packed",
-    "score_topk_fused2_packed",
-    "score_topk_fused3_int8_packed",
-    "score_topk_fused3_packed",
-    "score_topk_fused_int8_packed",
-    "score_topk_fused_packed",
     "masked_topk",
     "merge_topk",
     "pack_vals_idx",
@@ -66,15 +37,9 @@ __all__ = [
     "scores_matmul",
     "streaming_score_topk",
     "verified_topk",
-    "pairwise_candidates_keyed",
     "pairwise_topk_blocked",
     "quantize_rows_int8",
     "score_topk_int8",
     "score_topk_int8_fast",
     "score_topk_int8_packed",
 ]
-
-# The round-1 bitonic streaming kernel (``pallas_score_topk``) lives in
-# ``benchmarks/pallas_topk_v1.py`` now: both successor generations (tile
-# extraction and packed-key extraction) beat it on every measured shape
-# (BENCHMARKS.md shootouts), and nothing dispatches to it.

@@ -11,7 +11,7 @@ cliff.  Here the computation streams over row blocks under one ``jit``:
                                                # many of the global top-k
       merge with the running global top-k carry
 
-Peak memory is O(R*N) instead of O(N^2), and the matmuls stay MXU-shaped.
+Peak memory is O(R*N) instead of O(N^2), and each step is one large matmul.
 
 Exactness with ``m < k`` is *verified*, in the same style as the
 retrieval kernels: the scan carries the maximum per-row m-th value
@@ -32,9 +32,6 @@ import jax
 import jax.numpy as jnp
 
 from .topk import NEG_INF, scores_matmul
-
-#: Test hook: exercise the extraction path under the CPU interpreter.
-_FORCE_EXTRACT_INTERPRET = False
 
 #: Per-row selection widths tried in order; the last stage uses m = k and
 #: is exact by construction.  64 covers any plausible non-adversarial
@@ -58,54 +55,7 @@ def escalation_widths(k: int, n_rows_total: int, width_cap: int) -> "List[int]":
     return widths
 
 
-def extraction_route_chosen(n: int, rows: int, m: int) -> bool:
-    """THE hardware-independent half of :func:`select_rows_topm`'s
-    dispatch: True when a ``[rows, n]`` per-row top-``m`` selection routes
-    through the extraction kernel (on TPU; the CPU backend additionally
-    requires the interpret-mode test hook).  Split out so CI can pin the
-    routing used by the headline pairwise shapes without paying an
-    interpret-mode kernel run per shape."""
-    from .pallas_extract import BLOCK_N as EX_BLOCK
-    from .pallas_extract import extract_supported
-
-    sel_n = ((n + EX_BLOCK - 1) // EX_BLOCK) * EX_BLOCK
-    return sel_n <= 2 * n and extract_supported(sel_n, rows, m)
-
-
-def select_rows_topm(
-    scores: jax.Array, m: int, force_interp: "bool | None" = None
-) -> Tuple[jax.Array, jax.Array]:
-    """Per-row top-``m`` of a ``[R, N]`` score block, routed through the
-    extraction kernel when worthwhile (``lax.top_k`` is N-dominated:
-    ~40 ms per [256, 100k] block even at k=64) — pads score columns to
-    the kernel's block with NEG_INF unless the padding would dominate
-    (small N is faster through plain top_k)."""
-    from .pallas_extract import BLOCK_N as EX_BLOCK
-    from .pallas_extract import extract_topk
-
-    rows, n = scores.shape
-    on_cpu = jax.default_backend() == "cpu"
-    if force_interp is None:
-        force_interp = _FORCE_EXTRACT_INTERPRET
-    sel_n = ((n + EX_BLOCK - 1) // EX_BLOCK) * EX_BLOCK
-    use_extract = extraction_route_chosen(n, rows, m) and (
-        not on_cpu or force_interp
-    )
-    if not use_extract:
-        _v, _i = jax.lax.top_k(scores, m)
-        return _v, _i
-    if sel_n != n:
-        scores = jnp.concatenate(
-            [scores, jnp.full((rows, sel_n - n), NEG_INF, scores.dtype)],
-            axis=1,
-        )
-    return extract_topk(scores, m, interpret=on_cpu)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "per_row_k", "block_rows", "force_interp"),
-)
+@functools.partial(jax.jit, static_argnames=("k", "per_row_k", "block_rows"))
 def _pairwise_attempt(
     docs: jax.Array,
     n_valid: jax.Array,
@@ -113,7 +63,6 @@ def _pairwise_attempt(
     per_row_k: int,
     block_rows: int,
     row_scales: "jax.Array | None" = None,
-    force_interp: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """One blocked pass with per-row top-``per_row_k`` selection.  Returns
     ``(vals, rows, cols, covered)``; ``covered`` is False when some row's
@@ -158,9 +107,7 @@ def _pairwise_attempt(
         live = (col_ids > row_ids) & (col_ids < n_valid) & (row_ids < n_valid)
         scores = jnp.where(live, scores, NEG_INF)
 
-        blk_vals, blk_cols = select_rows_topm(
-            scores, per_row_k, force_interp=force_interp
-        )
+        blk_vals, blk_cols = jax.lax.top_k(scores, per_row_k)
         blk_rows = jnp.broadcast_to(row_ids[:, :1], blk_cols.shape)
         # the m-th (smallest selected) value per row bounds anything hidden
         c_tail = jnp.maximum(c_tail, jnp.max(blk_vals[:, -1]))
@@ -218,7 +165,7 @@ def pairwise_topk_blocked(
     cols int32 [k])`` sorted by score descending.  The caller must clamp
     ``k`` to the number of real pairs, ``n_valid * (n_valid - 1) / 2``.
 
-    With ``row_scales`` (int8 corpora), each block runs an int8 x int8 MXU
+    With ``row_scales`` (int8 corpora), each block runs an int8 x int8
     matmul with int32 accumulation and rescales to f32 on the fly — no
     dequantized copy of the corpus ever materializes (the extra HBM is
     O(block x N) scores, same as the float path).
@@ -227,256 +174,8 @@ def pairwise_topk_blocked(
     widths = escalation_widths(k, n_padded, n_padded)
     for m in widths:
         vals, rows, cols, covered = _pairwise_attempt(
-            docs, n_valid, k, m, block_rows, row_scales,
-            force_interp=_FORCE_EXTRACT_INTERPRET,
+            docs, n_valid, k, m, block_rows, row_scales
         )
         if bool(covered):
             return vals, rows, cols
     return vals, rows, cols  # last stage was exact by construction
-
-
-# --- keyed candidate pass (quantized, margin-verified at the KB) -----------
-#
-# The verified path above computes EXACT per-row top-m from the f32 score
-# block — correct for rescore-off callers, but the v1 extraction it rides
-# measured 3.7 ms per [256, 100k] block (85% of the whole pairwise pass;
-# BENCHMARKS.md 2026-08-18).  Engines running the verified rescore don't
-# need exact prescores at all: retrieval's keyed kernels already feed the
-# KB quantized candidates plus a bound, and ``_finalize_pairwise``
-# (kb.py) rescores candidate pairs in f32 and margin-checks the k-th
-# against ``pre_vals[-1] + pairwise_eps`` with widen-retry.  This pass
-# produces exactly that wire: per block, packed keys (KEY_EPS grid) from
-# ``pairwise_keys_extract``, per-row top-m of the decoded keys, a
-# PER-ROW hidden bound (max of subtile 8th-key tails and the row's m-th
-# selected key — same semantics as the exact path's tail), and a final
-# flat top-c whose LAST slot carries ``max(weakest candidate, global
-# hidden bound)``.  ``RetrievalEngine.pairwise_eps`` adds KEY_EPS
-# whenever this dispatch is possible, so bound and eps cannot drift.
-
-#: Per-row selection widths for the keyed pass: m=64 keeps the row-merge
-#: bound at ~the row's 64th best (comfortably under the k-th pair value
-#: for any k the escalation ladder sees first); KB widen-retries move to
-#: 512 and finally off the keyed path entirely (monotone: growing c only
-#: ever lowers the bound or turns keyed off).
-_KEYED_WIDTHS = ((16384, 64), (1 << 62, 512))
-
-#: Candidate-count ceiling for the keyed route.  The wire's hidden-pair
-#: bound has a c-INDEPENDENT component (the per-subtile 8th-key tails,
-#: fixed by the kernel's EXTRACT_H): when that term alone blocks the
-#: margin, no amount of widening converges — so the route hands the
-#: KB's ladder to the exact blocked path after one retry at the wider
-#: per-row rung (x4 widening: 16384 -> 65536 covers both _KEYED_WIDTHS).
-_KEYED_MAX_C = 65536
-
-
-def keyed_row_width(c: int, n_cols: int) -> int:
-    """Per-row width for a keyed pass at candidate count ``c``, capped by
-    the extracted-key pool per row."""
-    from .pallas_extract import PAIR_BLOCK_N, PAIR_KEYS
-
-    pool = (n_cols // PAIR_BLOCK_N) * PAIR_KEYS
-    for cap, m in _KEYED_WIDTHS:
-        if c <= cap:
-            return min(m, pool)
-    return min(_KEYED_WIDTHS[-1][1], pool)
-
-
-def keyed_pairwise_route(n_padded: int, block_rows: int, c: int) -> bool:
-    """Hardware-independent dispatch predicate for the keyed candidate
-    pass (the backend check lives at the caller, like
-    :func:`extraction_route_chosen`).  Requires kernel-supported shapes,
-    a collected pool that can hold ``c``, and a per-row merge width the
-    plain ``lax.top_k`` handles (wider corpora keep the exact path)."""
-    from .pallas_extract import PAIR_BLOCK_N, PAIR_KEYS, pair_keys_supported
-
-    if not pair_keys_supported(n_padded, min(block_rows, n_padded)):
-        return False
-    if n_padded % block_rows != 0:
-        return False
-    nbc = n_padded // PAIR_BLOCK_N
-    m = keyed_row_width(c, n_padded)
-    return (
-        0 < c <= min(_KEYED_MAX_C, n_padded * m)
-        and nbc * PAIR_KEYS <= 16384
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("c", "per_row_m", "block_rows", "force_interp"),
-)
-def _pairwise_keyed_jit(
-    docs: jax.Array,
-    n_valid: jax.Array,
-    c: int,
-    per_row_m: int,
-    block_rows: int,
-    row_scales: "jax.Array | None" = None,
-    force_interp: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    from .pallas_extract import (
-        EXTRACT_H,
-        KEY_DEAD,
-        KEY_HORIZON,
-        PAIR_BLOCK_N,
-        PAIR_KEYS,
-        PAIR_LIVE_MIN,
-        PAIR_MASKED,
-        _key_vals,
-        pairwise_keys_extract,
-    )
-
-    n_padded, d = docs.shape
-    n_blocks = n_padded // block_rows
-    nbc = n_padded // PAIR_BLOCK_N
-    interp = jax.default_backend() == "cpu" or force_interp
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (block_rows, n_padded), 1)
-
-    def step(
-        carry: Tuple[jax.Array, jax.Array], block_idx: jax.Array
-    ) -> Tuple[
-        Tuple[jax.Array, jax.Array], Tuple[jax.Array, jax.Array]
-    ]:
-        bound_max, in_range = carry
-        row0 = block_idx * block_rows
-        block = jax.lax.dynamic_slice(docs, (row0, 0), (block_rows, d))
-        if row_scales is not None:
-            raw = jax.lax.dot_general(
-                block,
-                docs,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            s_blk = jax.lax.dynamic_slice(row_scales, (row0,), (block_rows,))
-            scores = (
-                raw.astype(jnp.float32)
-                * s_blk[:, None]
-                * row_scales[None, :]
-            )
-        else:
-            scores = scores_matmul(docs, block)
-        row_ids = row0 + jax.lax.broadcasted_iota(
-            jnp.int32, (block_rows, n_padded), 0
-        )
-        live = (
-            (col_ids > row_ids) & (col_ids < n_valid) & (row_ids < n_valid)
-        )
-        # Finite sentinel, never -inf: an -inf key would destroy the
-        # packed lane bits (see PAIR_MASKED).
-        scores = jnp.where(live, scores, PAIR_MASKED)
-
-        tiles = pairwise_keys_extract(scores, interpret=interp)
-        t3 = tiles.reshape(block_rows, nbc, -1)
-        keys = t3[:, :, :PAIR_KEYS].reshape(block_rows, nbc * PAIR_KEYS)
-        # Domain guard (mirrors the retrieval keyed kernels': keys are
-        # exact f32 integers only while |key| < 2^24).  Non-unit-norm
-        # embedders can push pair dots past the horizon, silently
-        # corrupting lane bits AND the hidden-pair bound — a live key at
-        # the horizon flips `ok` so the caller takes the exact path.
-        # KEY_DEAD tail-padding markers are expected and pass.
-        live_keys = jnp.where(keys == KEY_DEAD, 0.0, keys)
-        in_range = jnp.logical_and(
-            in_range,
-            jnp.logical_and(
-                jnp.max(keys) < KEY_HORIZON,
-                jnp.min(live_keys) > -KEY_HORIZON,
-            ),
-        )
-        sel, pos = jax.lax.top_k(keys, per_row_m)
-        vals_q = _key_vals(sel)
-        ki = sel.astype(jnp.int32)
-        lane = ki - (ki // 512) * 512
-        g = pos // PAIR_KEYS
-        sub = (pos - g * PAIR_KEYS) // EXTRACT_H
-        col = g * PAIR_BLOCK_N + sub * 512 + lane
-        # Sentinel/padding candidates decode at PAIR_MASKED (= -2.0),
-        # real pairs at >= -1 - eps; anything below PAIR_LIVE_MIN is
-        # absent.  (col > row / col < nv are implied by the sentinel but
-        # asserted anyway: they are the correctness contract.)
-        valid = (
-            (col > row_ids[:, :1])
-            & (col < n_valid)
-            & (vals_q > PAIR_LIVE_MIN)
-        )
-        # Row-level hidden bound BEFORE masking: the m-th selected key
-        # bounds merge-dropped live keys (when it is a sentinel, nothing
-        # live was dropped and the low decode is harmless), and the
-        # subtile 8th-key tails bound in-subtile drops.
-        tails = t3[:, :, EXTRACT_H - 1 : PAIR_KEYS : EXTRACT_H]
-        tail_val = _key_vals(
-            jnp.max(tails.reshape(block_rows, -1), axis=1)
-        )
-        row_bound = jnp.maximum(tail_val, vals_q[:, -1])
-        bound_max = jnp.maximum(bound_max, jnp.max(row_bound))
-        vals_q = jnp.where(valid, vals_q, NEG_INF)
-        col = jnp.where(valid, col, 0)
-        return (bound_max, in_range), (
-            vals_q.reshape(-1),
-            col.reshape(-1),
-        )
-
-    (bound, keys_in_range), (v_all, c_all) = jax.lax.scan(
-        step,
-        (jnp.float32(PAIR_MASKED), jnp.bool_(True)),
-        jnp.arange(n_blocks, dtype=jnp.int32),
-    )
-    v_flat = v_all.reshape(-1)
-    c_flat = c_all.reshape(-1)
-    top_v, pos = jax.lax.top_k(v_flat, c)
-    # flat index = (blk * block_rows + r) * m + slot -> global row
-    rows_out = (pos // per_row_m).astype(jnp.int32)
-    cols_out = jnp.take(c_flat, pos).astype(jnp.int32)
-    ok = jnp.logical_and(
-        top_v[c - 1] > jnp.float32(PAIR_LIVE_MIN), keys_in_range
-    )
-    # The wire's boundary slot carries the sound upper bound on every
-    # pair NOT among the candidates (within KEY_EPS + the precision term;
-    # see RetrievalEngine.pairwise_eps) — exactly what the KB margin
-    # check reads as pre_vals[-1].
-    top_v = jnp.concatenate(
-        [top_v[: c - 1], jnp.maximum(top_v[c - 1 :], bound[None])]
-    )
-    return top_v, rows_out, cols_out, ok
-
-
-def pairwise_candidates_keyed(
-    docs: jax.Array,
-    n_valid: jax.Array,
-    c: int,
-    block_rows: int = 256,
-    row_scales: "jax.Array | None" = None,
-    force_interp: "bool | None" = None,
-) -> Tuple[jax.Array, jax.Array, jax.Array, bool]:
-    """Top-``c`` CANDIDATE pairs by quantized prescore, upper triangle.
-
-    Returns ``(vals f32 [c], rows int32 [c], cols int32 [c], ok bool)``
-    sorted descending; ``vals`` are packed-key decodes within ``KEY_EPS``
-    below the block-matmul score, and ``vals[-1]`` is
-    ``max(weakest candidate, hidden-pair bound)`` — the value a verified
-    rescore margin must clear (``kb._finalize_pairwise``).  ``ok`` False
-    means the extracted pool ran short of ``c`` live pairs (tiny or
-    mostly-padded corpora) OR a live packed key reached the f32 rounding
-    horizon (non-unit-norm inputs pushing scores past ~2.9: lane bits
-    would be corrupt and the hidden-pair bound unsound): the caller must
-    use the exact path instead — the other outputs contain absent-slot
-    placeholders.  Only sound under
-    a rescore+margin caller; requires :func:`keyed_pairwise_route`.
-
-    Unlike :func:`pairwise_topk_blocked` there is no in-function
-    escalation: the KB's widen-retry owns it (a wider ``c`` lowers the
-    bound via :func:`keyed_row_width` and eventually leaves the keyed
-    route entirely).
-    """
-    if force_interp is None:
-        force_interp = _FORCE_EXTRACT_INTERPRET
-    m = keyed_row_width(c, docs.shape[0])
-    vals, rows, cols, ok = _pairwise_keyed_jit(
-        docs,
-        n_valid,
-        c,
-        m,
-        block_rows,
-        row_scales,
-        force_interp=force_interp,
-    )
-    return vals, rows, cols, bool(ok)

@@ -1,11 +1,11 @@
 """Int8-quantized scoring: 2x the corpus per chip over bf16, 4x over f32.
 
 Storage is symmetric per-row int8 (``q = round(row * 127 / max|row|)``); the
-query is quantized per-query the same way, the dot runs int8 x int8 on the
-MXU with int32 accumulation, and scores are rescaled to f32.  Quantized
+query is quantized per-query the same way, the dot runs int8 x int8 with
+int32 accumulation, and scores are rescaled to f32.  Quantized
 scores are a *prescore*: exact final ordering comes from the engine's f32
 rescore of the candidate set (see ``RetrievalEngine``), so recall stays 1.0
-while the HBM read per query halves.
+while the device-memory read per query halves.
 """
 
 from __future__ import annotations
@@ -78,26 +78,6 @@ def score_topk_int8_packed(
     return pack_vals_idx(
         *score_topk_int8(q_docs, row_scales, queries, n_valid, k), wide=wide
     )
-
-
-@functools.partial(jax.jit, static_argnames=("k", "wide", "interpret"))
-def score_topk_int8_extract_packed(
-    q_docs: jax.Array,
-    row_scales: jax.Array,
-    queries: jax.Array,
-    n_valid: jax.Array,
-    k: int,
-    wide: bool = False,
-    interpret: bool = False,
-) -> jax.Array:
-    """int8 scoring + the pallas tile-extraction selection (the batched
-    fast path; see ``ops.pallas_extract``)."""
-    from .pallas_extract import extract_topk
-    from .topk import mask_cols, pack_vals_idx
-
-    scores = mask_cols(_int8_scores(q_docs, row_scales, queries), n_valid)
-    vals, idx = extract_topk(scores, k, interpret=interpret)
-    return pack_vals_idx(vals, idx, wide=wide)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))

@@ -2,7 +2,7 @@
 
 The retrieval hot path is two fused stages under one ``jit``:
 
-1. ``scores = docs @ queries.T`` — one MXU matmul over the HBM-resident
+1. ``scores = docs @ queries.T`` — one matmul over the device-resident
    corpus (bf16 or f32 storage, always f32 accumulation via
    ``preferred_element_type``), replacing the reference's NumPy GEMV
    (``svs/kb.py:1185``).
@@ -25,16 +25,15 @@ NEG_INF = float("-inf")
 
 
 def f32_dot_precision(dtype: "jnp.dtype | None") -> "jax.lax.Precision | None":
-    """MXU precision for a float dot whose operands have ``dtype``.
+    """Dot precision for a float dot whose operands have ``dtype``.
 
-    TPU MXUs multiply in bf16: an f32 x f32 dot at DEFAULT precision runs
-    reduced-precision passes and errs ~2.6e-4 on unit-norm d=1536 dots
-    (measured on v5e — XLA and Mosaic identically), far above the 1e-4
-    the engine's error bounds claim for f32 corpora.  HIGHEST restores
-    true-f32 results (measured 3.9e-8) at ~2x the matmul cost — correct
-    for the accuracy-first f32 paths and for every exact-rescore dot.
-    bf16 operands with f32 accumulation are exact as specified at DEFAULT
-    (one pass holds the full product), so they keep ``None``.
+    At DEFAULT precision the GPU runs an f32 x f32 dot on the tensor
+    cores in TF32, which keeps a 10-bit mantissa: ~1e-3 relative error,
+    far above the 1e-4 the engine's error bounds claim for f32 corpora.
+    HIGHEST asks for true f32 arithmetic — required for the f32 scoring
+    paths and for every exact-rescore dot.  bf16 operands with f32
+    accumulation are exact as specified at DEFAULT (the product of two
+    bf16 values fits an f32), so they keep ``None``.
     """
     return jax.lax.Precision.HIGHEST if dtype == jnp.float32 else None
 
@@ -47,7 +46,7 @@ def scores_matmul(docs: jax.Array, queries: jax.Array) -> jax.Array:
     cosine similarity.
 
     Queries are cast to the docs' storage dtype so a bf16 corpus runs a
-    bf16xbf16 MXU matmul (half the HBM traffic) instead of being silently
+    bf16xbf16 matmul (half the memory traffic) instead of being silently
     promoted to f32; accumulation stays f32 either way.  f32 corpora run
     at HIGHEST precision so the result is a true f32 dot (see
     :func:`f32_dot_precision`) — the engine's f32 error bound depends on
@@ -99,11 +98,10 @@ def verified_topk(
 ) -> Tuple[jax.Array, jax.Array]:
     """**Verified-exact** fast top-k over pre-masked ``[B, N]`` scores.
 
-    ``lax.top_k`` on TPU is far from memory-bound for large score vectors
-    (hundreds of microseconds per 1M-row query).  This path instead uses the
-    TPU-optimized ``lax.approx_max_k`` (PartialReduce) to pull an
-    over-provisioned candidate set, then *proves* exactness with one cheap
-    counting pass:
+    Uses ``lax.approx_max_k`` to pull an over-provisioned candidate set,
+    then *proves* exactness with one cheap counting pass (on backends
+    without an approximate top-k, ``approx_max_k`` lowers to an exact
+    one and the proof passes trivially):
 
       let v = the k-th largest candidate value.  If the number of elements
       STRICTLY greater than v matches between the candidate set and the
@@ -159,15 +157,6 @@ def score_topk_fast(
     return verified_topk(scores, k)
 
 
-#: Ceiling on the f32 score-matrix bytes a materializing exact path may
-#: allocate in-graph.  ``lax.cond`` branches allocate even when untaken:
-#: a [256, 2^24] fallback inside the keyed kernels is a 17 GB HBM
-#: allocation that fails COMPILE on a 16 GB chip, killing the very
-#: wide-corpus shapes the keyed kernels exist for.  Past this budget the
-#: fallback streams over row blocks instead (:func:`streaming_score_topk`).
-FALLBACK_SCORES_BUDGET = 1 << 31  # 2 GiB
-
-
 def streaming_score_topk(
     docs: jax.Array,
     queries: jax.Array,
@@ -184,9 +173,8 @@ def streaming_score_topk(
     never materializes: a ``fori_loop`` scores one row block at a time
     and merges a running top-k carry (``concat([carry, block]) -> top_k``
     — carry first, so global tie order is preserved).  This is the exact
-    fallback the fused keyed kernels embed once a materializing fallback
-    would exceed :data:`FALLBACK_SCORES_BUDGET`; it is also callable
-    directly for any corpus too large to score in one piece.
+    path once a materializing one would exceed the device's scores
+    budget (``utils.device_memory.scores_budget``).
 
     The block size is the largest divisor of ``n`` at most
     ``max_block_rows`` (packed corpora are block-multiple-sized, so a
@@ -266,8 +254,8 @@ def streaming_score_topk_packed(
     wide: bool = False,
 ) -> jax.Array:
     """:func:`streaming_score_topk` + result packing in one dispatch —
-    the XLA-ladder bottom for corpora whose ``[B, N]`` f32 score matrix
-    exceeds :data:`FALLBACK_SCORES_BUDGET`."""
+    the XLA path for corpora whose ``[B, N]`` f32 score matrix exceeds
+    the device's scores budget."""
     return pack_vals_idx(
         *streaming_score_topk(docs, queries, n_valid, k, row_scales=row_scales),
         wide=wide,
@@ -362,9 +350,8 @@ def score_topk_packed(
     k: int,
     wide: bool = False,
 ) -> jax.Array:
-    """:func:`score_topk` + result packing in ONE device dispatch —
-    the engine's hot path (every separate dispatch is a full RPC round
-    trip on tunneled devices)."""
+    """:func:`score_topk` + result packing in ONE device dispatch and
+    one host fetch — the engine's XLA prescore path."""
     return pack_vals_idx(*score_topk(docs, queries, n_valid, k), wide=wide)
 
 
@@ -378,11 +365,9 @@ def tiled_topk(
 ) -> Tuple[jax.Array, jax.Array]:
     """Exact top-k over large score rows via per-tile partial selection.
 
-    ``lax.top_k`` over ``[B, 1M]`` is the cost center of batched retrieval
-    (~80 ms device time at B=256 on v5e — far off the HBM roofline).  This
-    splits each row into tiles, takes a cheap per-tile top-``m`` (small
-    sorts stay in VMEM/registers), and merges the ``T*m`` survivors with
-    one small ``lax.top_k``.
+    Splits each row into tiles, takes a per-tile top-``m`` (small sorts),
+    and merges the ``T*m`` survivors with one small ``lax.top_k`` — an
+    alternative to one ``lax.top_k`` over the whole ``[B, N]`` row.
 
     Exactness is *verified in-graph*: a tile can only hide a true top-k
     element beyond its kept ``m`` if its m-th (smallest kept) value beats
@@ -437,7 +422,7 @@ def score_topk_tiled_packed(
     """Fused scoring + :func:`tiled_topk` selection + result packing.
 
     ``score_dtype='bf16'`` stores the score matrix in bf16 before selection
-    — halves the selection stage's HBM traffic; the added ~2^-9 relative
+    — halves the selection stage's memory traffic; the added ~2^-9 relative
     rounding is covered by the engine's prescore error bound (rescore
     stays verified-exact).
     """

@@ -1,13 +1,13 @@
-"""Multi-chip scaling: device meshes, corpus sharding, and replication.
+"""Multi-device scaling: device meshes, corpus sharding, and replication.
 
 The reference is single-process/single-node with no distributed anything
-(SURVEY.md section 2.3), so everything here is net-new TPU design, along
+(SURVEY.md section 2.3), so everything here is net-new design, along
 two orthogonal axes:
 
 - **Sharding** (``sharded``, ``pairwise_sharded``): the corpus splits
   row-wise across a ``jax.sharding.Mesh`` — capacity (corpora past one
-  chip's HBM) and per-query latency.  Each chip scores its shard and
-  selects a local top-k; only ``k`` candidates per chip cross the ICI to
+  device's memory) and per-query latency.  Each device scores its shard
+  and selects a local top-k; only ``k`` candidates per device cross to
   be merged — the retrieval analogue of "exchange candidates, not
   scores".
 - **Replication** (``replicas``): every chip holds a full copy of a

@@ -30,7 +30,7 @@ def mesh_2d(
 ) -> jax.sharding.Mesh:
     """A ``data x model`` mesh: corpus rows sharded over ``data_axis`` and
     the embedding dim sharded over ``model_axis`` (partial dot products
-    reduced with a psum over ICI)."""
+    reduced with a psum)."""
     devs = list(devices) if devices is not None else jax.devices()
     assert data * model <= len(devs), (
         f"need {data * model} devices, have {len(devs)}"

@@ -2,9 +2,9 @@
 
 A corpus that outgrows one host's chips shards across a multi-host
 deployment the same way it shards across a slice: the mesh just spans all
-hosts' devices.  JAX inserts ICI collectives within a slice and DCN
-collectives across slices; the retrieval design (only ``k`` candidates
-leave each chip) keeps DCN traffic tiny.
+hosts' devices.  XLA lowers the collectives to the interconnect within
+a host and the network across hosts; the retrieval design (only ``k``
+candidates leave each device) keeps cross-host traffic tiny.
 
 Typical serving worker:
 

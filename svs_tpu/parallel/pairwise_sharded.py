@@ -6,21 +6,20 @@ gathering it anywhere, the shards themselves rotate around the ring:
 
   ring step s (of D): every chip holds the shard that originated on chip
   (me + s) mod D.  The chip streams its RESIDENT rows in row-blocks
-  against that visiting shard -> [R, N/D] MXU matmuls (never an
+  against that visiting shard -> [R, N/D] matmuls (never an
   O((N/D)^2) score matrix), masks to the strict-upper global triangle,
   keeps a verified per-row top-m, and folds the winners into a running
   carry.  Then the visiting shard ppermutes one hop.
 
 After D ring steps every global pair has been scored exactly once, each
 chip holds its rows' top-k pairs, and one candidate merge (k per chip
-over ICI) yields the exact global top-k.  Peak memory per chip is
+across devices) yields the exact global top-k.  Peak memory per chip is
 O(R * N/D) scores; traffic per chip is one corpus's worth over the ring.
 
 Per-row selection uses the same verified width escalation as the
 single-chip pass (ops/pairwise.py): start at m=64, escalate when any
 row's m-th value reaches the merged k-th (the hidden-pair bound); the
-final stage is exact by construction.  Selection routes through the
-extraction kernel where supported.
+final stage is exact by construction.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from ..ops.pairwise import escalation_widths, select_rows_topm
+from ..ops.pairwise import escalation_widths
 from ..ops.topk import NEG_INF, scores_matmul
 
 
@@ -52,14 +51,9 @@ def sharded_pairwise_topk(
     """
     n_shards = int(mesh.shape[data_axis])
     n_local = docs.shape[0] // n_shards
-    from ..ops import pairwise as _pw
-
     widths = escalation_widths(k, docs.shape[0], n_local)
     for m in widths:
-        fn = _build(
-            mesh, data_axis, int(k), int(m),
-            bool(_pw._FORCE_EXTRACT_INTERPRET),
-        )
+        fn = _build(mesh, data_axis, int(k), int(m))
         vals, rows, cols, covered = fn(docs, n_valid)
         if bool(covered):
             return vals, rows, cols
@@ -76,7 +70,6 @@ def _build(
     data_axis: str,
     k: int,
     per_row_k: int,
-    force_interp: bool = False,
 ) -> "Any":
     n_shards = int(mesh.shape[data_axis])
     ring = [(j, (j - 1) % n_shards) for j in range(n_shards)]
@@ -126,9 +119,7 @@ def _build(
                     (cols_g > rows_g) & (cols_g < n_valid) & (rows_g < n_valid)
                 )
                 scores = jnp.where(live, scores, NEG_INF)
-                blk_v, blk_c = select_rows_topm(
-                    scores, m_eff, force_interp=force_interp
-                )
+                blk_v, blk_c = jax.lax.top_k(scores, m_eff)
                 c_tail = jnp.maximum(c_tail, jnp.max(blk_v[:, -1]))
                 blk_cg = col_base + blk_c.astype(jnp.int32)
                 blk_r = jnp.broadcast_to(rows_g[:, :1], blk_cg.shape)

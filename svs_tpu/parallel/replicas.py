@@ -2,7 +2,7 @@
 
 The mesh path (``parallel.sharded``) shards the CORPUS — it buys
 capacity (corpora past one chip's HBM) and per-query latency, at the
-cost of an ICI merge per batch.  Replication is the opposite trade for
+cost of a cross-device merge per batch.  Replication is the opposite trade for
 corpora that FIT one chip: every device holds a full copy of the pack,
 an incoming query batch splits into per-device sub-batches, and each
 replica runs the unmodified single-chip pipeline (fused prescore
@@ -10,7 +10,7 @@ kernels, on-device f32 rescore, final tie-rule selection) on its slice.
 No collectives, no merge — results concatenate — so throughput scales
 ~linearly with devices while each query sees single-chip latency.
 
-This is the TPU-native throughput analog of scaling the reference by
+This is the throughput analog of scaling the reference by
 running more processes against the same SQLite file (its hot path is
 one ``np.dot`` per process, ``svs/kb.py:1185``): here one process
 drives all replicas, the store stays the single source of truth, and
@@ -28,10 +28,9 @@ Design notes:
   int32 emb ids) are built per device by the same policy code the
   single-chip engine uses.
 - Per-replica batch sizes can differ by one query (``np.array_split``);
-  kernel dispatch and the prescore error bound are both evaluated at
-  the REPLICA batch size (``prescore_eps`` is overridden accordingly),
-  so the margin proof stays sound when a split crosses a dispatch
-  boundary (e.g. the guarded kernels' minimum batch).
+  kernel dispatch is evaluated at the REPLICA batch size, and the
+  prescore error bound depends on the storage precision alone, so it
+  holds whichever route a slice takes.
 """
 
 from __future__ import annotations
@@ -128,11 +127,15 @@ class ReplicaEngine(RetrievalEngine):
 
     def shutdown(self) -> None:
         """Release the fan-out worker threads (KB/AsyncKB ``close()``
-        call this) and the base engine's background uploader.  A search
-        racing the shutdown degrades to running its slices inline (see
-        :meth:`_run`); the next :meth:`ensure_fresh` re-creates the pool
-        if the KB reopens."""
+        call this) and every engine's background uploaders — the
+        secondaries upload their own rescore mirrors, and a daemon
+        thread caught mid-transfer at interpreter exit aborts the
+        process.  A search racing the shutdown degrades to running its
+        slices inline (see :meth:`_run`); the next :meth:`ensure_fresh`
+        re-creates the pool if the KB reopens."""
         super().shutdown()
+        for eng in self._secondaries:
+            eng.shutdown()
         with self._clone_lock:
             pool, self._pool = self._pool, None
         if pool is not None:
@@ -283,25 +286,6 @@ class ReplicaEngine(RetrievalEngine):
             np.concatenate([o[0] for o in outs], axis=0),
             np.concatenate([o[1] for o in outs], axis=0),
             np.concatenate([o[2] for o in outs], axis=0),
-        )
-
-    def prescore_eps(
-        self, corpus: PackedCorpus, queries: np.ndarray, k: int
-    ) -> np.ndarray:
-        """Per-query error bounds evaluated at the REPLICA batch size:
-        kernel dispatch inside each replica sees its slice's ``b``, and
-        the bound must match the kernel that actually ran (a full-batch
-        ``b`` could disagree across dispatch boundaries such as the
-        guarded kernels' minimum batch)."""
-        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        plan = self._plan(corpus, queries)
-        if len(plan) == 1:
-            return super().prescore_eps(corpus, queries, k)
-        return np.concatenate(
-            [
-                RetrievalEngine.prescore_eps(self, corpus, q, k)
-                for _, _, q in plan
-            ]
         )
 
     def _run(

@@ -4,14 +4,14 @@ Design (net-new vs the reference; see SURVEY.md sections 2.3/5):
 
 - the packed corpus is sharded row-wise along the ``data`` mesh axis (and
   optionally column-wise along a ``model`` axis for very wide embeddings);
-- under ``shard_map``, every chip scores **only its shard** (one local MXU
-  matmul, full local HBM bandwidth), masks padding by *global* row index,
+- under ``shard_map``, every device scores **only its shard** (one local
+  matmul, full local memory bandwidth), masks padding by *global* row index,
   and selects a local top-k;
 - only ``k`` candidates per chip leave the chip; the exact global top-k is
   a merge over those ``D * k`` candidates.  Exactness: each global top-k hit
   lives in some shard and is therefore in that shard's local top-k;
 - with a ``model`` axis, partial dot products are reduced with one
-  ``psum`` over ICI before selection.
+  ``psum`` before selection.
 
 Per-shard winners are returned from ``shard_map`` stacked along the data
 axis and merged in plain jit-land, so the result needs no replication
@@ -41,8 +41,6 @@ def sharded_score_topk(
     mesh: jax.sharding.Mesh,
     data_axis: str = "data",
     model_axis: Optional[str] = None,
-    keyed: bool = False,
-    guarded: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """Exact top-``k`` over a mesh-sharded corpus.
 
@@ -50,42 +48,14 @@ def sharded_score_topk(
     ``row_scales``: ``[N]`` f32 for int8 corpora (data-axis sharded) or
     ``None``; ``queries``: ``[B, d]``.  Returns replicated
     ``(values f32 [B, k], global row indices int32 [B, k])``.
-
-    ``keyed=True`` runs each shard through the keyed (v2) fused kernels —
-    matmul + packed-key selection in ONE kernel, per-shard score matrix
-    never touching HBM (the flagship single-chip path, per chip).
-    Returned values are then quantized prescores within ``KEY_EPS`` below
-    the true score; callers pair it with the verified rescore exactly as
-    on a single chip (``RetrievalEngine.prescore_eps`` adds the KEY_EPS
-    term whenever this dispatch is possible).  Requires data-axis-only
-    sharding and per-shard ``fused2_supported`` shapes — the engine's
-    ``_keyed_selection_possible`` is the gate.
-
-    ``guarded=True`` runs each shard through the guarded (v3) kernels
-    instead — batched selection with half v2's emit reduces; each shard
-    returns candidates plus a sound per-query bound on every hidden
-    (non-extracted) prescore in its row range, and the merged boundary
-    slot becomes ``max(weakest merged candidate, max over shards of the
-    per-shard bounds)`` — exactly the composition the single-chip wire
-    carries (``ops.pallas_extract.score_topk_fused3_packed``), so the
-    engine's rescore margin proof reads it unchanged.  Only sound under
-    the verified rescore + widen machinery; the engine's
-    ``_guarded_selection_possible`` is the gate (data-axis-only,
-    per-shard ``fused3_supported`` shapes, ``b >= GUARD_MIN_BATCH``).
     """
     if row_scales is not None and model_axis is not None:
         raise NotImplementedError(
             "int8 corpora shard over the data axis only (per-query scales "
             "must see the full query vector)"
         )
-    if (keyed or guarded) and model_axis is not None:
-        raise NotImplementedError(
-            "keyed/guarded per-shard selection needs each shard's full "
-            "dot products (data-axis-only sharding)"
-        )
     fn = _build_sharded_topk(
-        mesh, data_axis, model_axis, int(k), row_scales is not None, keyed,
-        guarded,
+        mesh, data_axis, model_axis, int(k), row_scales is not None
     )
     if row_scales is not None:
         return fn(docs, row_scales, queries, n_valid)
@@ -99,8 +69,6 @@ def _build_sharded_topk(
     model_axis: Optional[str],
     k: int,
     has_scales: bool,
-    keyed: bool = False,
-    guarded: bool = False,
 ) -> "Any":
     def local_topk(
         docs: jax.Array,
@@ -110,65 +78,16 @@ def _build_sharded_topk(
     ) -> Tuple[jax.Array, ...]:
         n_local = docs.shape[0]
         k_local = min(k, n_local)
-        on_cpu = jax.default_backend() == "cpu"
         offset = jax.lax.axis_index(data_axis).astype(jnp.int32) * n_local
 
-        if guarded:
-            # Guarded (v3) kernels per shard: candidates + a sound bound
-            # on every prescore hidden in this shard's row range (see
-            # ops.pallas_extract "guarded fused kernels").  The bound
-            # rides back as a third per-shard output; ``merged`` folds
-            # the max across shards into the wire's boundary slot.
-            from ..ops.pallas_extract import (
-                fused3_candidates,
-                fused3_candidates_int8,
-            )
-
-            nv_local = jnp.clip(
-                n_valid.astype(jnp.int32) - offset, 0, n_local
-            )
-            if has_scales:
-                vals, rows, bound = fused3_candidates_int8(
-                    docs, scales, q, nv_local, k_local, interpret=on_cpu
-                )
-            else:
-                vals, rows, bound = fused3_candidates(
-                    docs, q, nv_local, k_local, interpret=on_cpu
-                )
-            gidx = rows.astype(jnp.int32) + offset
-            return vals[None], gidx[None], bound[None]
-
-        if keyed:
-            # Keyed fused kernels per shard: one kernel does matmul +
-            # packed-key selection; the [B, N/D] score matrix never
-            # exists in HBM (≈2x less per-shard HBM traffic than the
-            # materialize-then-extract path below).  Shard rows are a
-            # globally contiguous range, so this shard's live prefix is
-            # clip(n_valid - offset, 0, n_local).
-            from ..ops.pallas_extract import fused2_topk, fused2_topk_int8
-
-            nv_local = jnp.clip(
-                n_valid.astype(jnp.int32) - offset, 0, n_local
-            )
-            if has_scales:
-                vals, idx = fused2_topk_int8(
-                    docs, scales, q, nv_local, k_local, interpret=on_cpu
-                )
-            else:
-                vals, idx = fused2_topk(
-                    docs, q, nv_local, k_local, interpret=on_cpu
-                )
-            gidx = idx.astype(jnp.int32) + offset
-            return vals[None], gidx[None]
-
         if model_axis is None:
-            from ..ops.topk import FALLBACK_SCORES_BUDGET, streaming_score_topk
+            from ..ops.topk import streaming_score_topk
+            from ..utils import device_memory
 
-            if q.shape[0] * n_local * 4 > FALLBACK_SCORES_BUDGET:
+            if q.shape[0] * n_local * 4 > device_memory.scores_budget():
                 # The materializing path below allocates a [B, N/D] f32
-                # score matrix PER SHARD — at [256, 2^24] that is 17 GB
-                # and fails compile on a 16 GB chip.  Stream row blocks
-                # instead (exact, same tie rule, O(B x block) memory).
+                # score matrix PER SHARD; past the budget, stream row
+                # blocks instead (exact, same tie rule, O(B x block)).
                 nv_local = jnp.clip(
                     n_valid.astype(jnp.int32) - offset, 0, n_local
                 )
@@ -195,15 +114,7 @@ def _build_sharded_topk(
             jnp.int32, scores.shape, scores.ndim - 1
         )
         masked = jnp.where(global_col < n_valid, scores, NEG_INF)
-        from ..ops.pallas_extract import extract_supported, extract_topk
-
-        if extract_supported(n_local, q.shape[0], k_local):
-            # Per-shard selection through the tile-extraction kernel —
-            # the same ~7x over lax.top_k as single-chip, and it runs
-            # concurrently on every chip (see ops/pallas_extract.py).
-            vals, idx = extract_topk(masked, k_local, interpret=on_cpu)
-        else:
-            vals, idx = jax.lax.top_k(masked, k_local)
+        vals, idx = jax.lax.top_k(masked, k_local)
         gidx = idx.astype(jnp.int32) + offset
         # Stack per-shard winners along a leading data-axis dim.
         return vals[None], gidx[None]
@@ -221,36 +132,20 @@ def _build_sharded_topk(
         ) -> Tuple[jax.Array, ...]:
             return local_topk(docs, None, q, n_valid)
 
-    out_specs: Tuple[P, ...] = (P(data_axis, None, None), P(data_axis, None, None))
-    if guarded:
-        out_specs = out_specs + (P(data_axis, None),)
     shard_fn = jax.shard_map(
         mapped,
         mesh=mesh,
         in_specs=in_specs,
-        out_specs=out_specs,
+        out_specs=(P(data_axis, None, None), P(data_axis, None, None)),
         check_vma=False,
     )
 
     def merged(*args: jax.Array) -> Tuple[jax.Array, jax.Array]:
-        out = shard_fn(*args)
-        vals, gidx = out[0], out[1]  # [D, B, k_local]
+        vals, gidx = shard_fn(*args)  # [D, B, k_local]
         b = vals.shape[1]
         vals = jnp.moveaxis(vals, 0, 1).reshape(b, -1)
         gidx = jnp.moveaxis(gidx, 0, 1).reshape(b, -1)
-        mvals, midx = merge_topk(vals, gidx, k)
-        if guarded:
-            # A doc missing from the merged set was either never
-            # extracted in its shard (<= that shard's bound) or dropped
-            # at the merge (<= the merged k-th value), so this boundary
-            # upper-bounds every hidden prescore globally — the same
-            # composition score_topk_fused3_packed writes single-chip.
-            gbound = jnp.max(out[2], axis=0)  # [B]
-            mvals = jnp.concatenate(
-                [mvals[:, :-1], jnp.maximum(mvals[:, -1:], gbound[:, None])],
-                axis=1,
-            )
-        return mvals, midx
+        return merge_topk(vals, gidx, k)
 
     return jax.jit(merged)
 
@@ -271,10 +166,10 @@ def sharded_rescore_final(
     (``engine.index._final_from_packed``): the exact f32 rescore of the
     merged candidates runs WHERE THE ROWS LIVE — each shard gathers the
     candidate rows in its global range from its slice of the f32 mirror,
-    computes partial exact dots, and one ``psum`` over ICI produces the
+    computes partial exact dots, and one ``psum`` produces the
     replicated exact scores; the final top-k selection (reference tie
     rule) then runs replicated, and the caller fetches one compact
-    ``[B, 2k+1]`` int32 wire.  Only candidate metadata crosses ICI —
+    ``[B, 2k+1]`` int32 wire.  Only candidate metadata crosses devices —
     never embedding vectors.
 
     ``packed``: replicated prescore wire from :func:`sharded_score_topk`
@@ -308,8 +203,7 @@ def _build_sharded_rescore_final(
         valid = (lr >= 0) & (lr < n_local)
         cand = mirror[jnp.clip(lr, 0, n_local - 1)]  # [B, C, d] local HBM
         # HIGHEST: exact-f32 rescore partials (the margin proof's ground
-        # truth) — default MXU passes err ~2.6e-4 on f32 operands (see
-        # ops.topk.f32_dot_precision).
+        # truth); the default runs f32 in TF32 (ops.topk.f32_dot_precision).
         partial = jax.lax.dot_general(
             cand,
             q,
@@ -363,10 +257,10 @@ def sharded_subset_topk(
     pack-row subset, computed where the rows live.  Each shard gathers
     the subset rows in its global range from its slice of the f32
     mirror and computes partial exact dots (``HIGHEST``); one ``psum``
-    over ICI replicates the full ``[B, F]`` exact score matrix; the
+    replicates the full ``[B, F]`` exact score matrix; the
     final tie-rule selection runs replicated and the caller fetches one
     compact ``[B, 2k+1]`` wire.  Only the tiny row-index vector and the
-    ``[B, F]`` partials cross ICI — never embedding vectors.
+    ``[B, F]`` partials cross devices — never embedding vectors.
 
     ``mirror``: ``[N_padded, dim]`` f32 in pack-row order, sharded
     ``P(data_axis)``; ``dev_emb``: ``[N_padded]`` int32 emb ids in

@@ -11,7 +11,7 @@ reference opens here unchanged, and vice versa.
 What is new relative to the reference is the ``matrix_version`` counter
 (see :meth:`Tx.bump_matrix_version`): a monotonically increasing integer in
 the internal keyval table, bumped inside any transaction that mutates
-embeddings.  The TPU engine and the sidecar cold-start cache key their
+embeddings.  The retrieval engine and the sidecar cold-start cache key their
 derived state off it, replacing the reference's blunt invalidate-everything
 scheme (``svs/kb.py:856-893``) with cheap staleness checks.
 """

@@ -21,13 +21,17 @@ from typing import (
     Iterator,
     List,
     Optional,
+    TYPE_CHECKING,
     Protocol,
     Tuple,
     TypedDict,
     Union,
 )
 
-import networkx as nx  # type: ignore[import-untyped]
+if TYPE_CHECKING:
+    # networkx is imported only where a graph is built (store.tx), so
+    # importing the package needs nothing beyond numpy, scipy and JAX.
+    import networkx as nx  # type: ignore[import-untyped]
 
 #: An embedding function maps a batch of strings to a batch of unit-norm
 #: vectors.  It is async because real providers are remote HTTP APIs.
@@ -37,7 +41,12 @@ EmbeddingFunc = Callable[[List[str]], Awaitable[List[List[float]]]]
 DocumentId = int
 EdgeId = int
 
-NetworkXGraphTypes = Union[nx.Graph, nx.DiGraph, nx.MultiGraph, nx.MultiDiGraph]
+if TYPE_CHECKING:
+    NetworkXGraphTypes = Union[
+        nx.Graph, nx.DiGraph, nx.MultiGraph, nx.MultiDiGraph
+    ]
+else:
+    NetworkXGraphTypes = Any
 
 
 class DocumentRecord(TypedDict):

@@ -22,6 +22,7 @@ count on every widen retry — is pinned in
 
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -219,26 +220,65 @@ def test_warmup_never_blocks_on_deferred_upload(db_path, monkeypatch):
         kb.close()
 
 
-def test_compile_cache_explicit_override_beats_ambient(
-    monkeypatch, tmp_path
+@pytest.mark.parametrize("ambient_via", ["env", "config"])
+def test_compile_cache_ambient_dir_beats_explicit_override(
+    monkeypatch, tmp_path, ambient_via
 ):
-    """REGRESSION (round-5 self-review pass 2): an explicit
-    SVS_TPU_COMPILE_CACHE path must win over an ambient
-    JAX_COMPILATION_CACHE_DIR / jax.config setting — that is the knob's
-    documented contract; only the no-override case defers to the user's
-    ambient configuration."""
+    """A compilation cache directory JAX already knows about (env
+    JAX_COMPILATION_CACHE_DIR, or jax.config) is used as it is: the
+    program sets no other directory, not even from an explicit
+    SVS_TPU_COMPILE_CACHE."""
     import jax
 
     import svs_tpu.utils.compile_cache as cc
 
     ambient = str(tmp_path / "ambient")
     explicit = str(tmp_path / "explicit")
-    jax.config.update("jax_compilation_cache_dir", ambient)
+    if ambient_via == "env":
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", ambient)
+    else:
+        jax.config.update("jax_compilation_cache_dir", ambient)
     monkeypatch.setenv("SVS_TPU_COMPILE_CACHE", explicit)
     monkeypatch.setattr(cc, "_done", False)
     try:
         cc.enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir == explicit
+        expected = ambient if ambient_via == "config" else None
+        assert jax.config.jax_compilation_cache_dir == expected
+        assert not (tmp_path / "explicit").exists()
     finally:
         jax.config.update("jax_compilation_cache_dir", None)
         monkeypatch.setattr(cc, "_done", False)
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+def test_compile_cache_default_is_fixed_in_checkout(
+    monkeypatch, tmp_path, explicit
+):
+    """Without an ambient directory the cache goes to SVS_TPU_COMPILE_CACHE
+    when given, else to the fixed in-checkout default (git-ignored); the
+    CPU backend caches only on the explicit path."""
+    import jax
+
+    import svs_tpu.utils.compile_cache as cc
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    jax.config.update("jax_compilation_cache_dir", None)
+    target = tmp_path / "explicit"
+    if explicit:
+        monkeypatch.setenv("SVS_TPU_COMPILE_CACHE", str(target))
+    else:
+        monkeypatch.delenv("SVS_TPU_COMPILE_CACHE", raising=False)
+        monkeypatch.setattr(cc, "DEFAULT_DIR", target)
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(cc, "_done", False)
+    try:
+        cc.enable_compilation_cache()
+        assert jax.config.jax_compilation_cache_dir == str(target)
+        assert target.is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", None)
+        monkeypatch.setattr(cc, "_done", False)
+    if explicit:
+        repo = Path(cc.__file__).resolve().parents[2]
+        assert repo in Path(cc.DEFAULT_DIR).parents
+        assert ".cache/" in (repo / ".gitignore").read_text().splitlines()

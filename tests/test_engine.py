@@ -460,18 +460,24 @@ def test_pairwise_topk_int8_no_dequant(db_path, unit_rows):
     db.close()
 
 
-def test_kernel_pallas_rejected_for_int8_and_mesh():
-    with pytest.raises(ValueError, match="float storage"):
-        RetrievalEngine(precision="int8", kernel="pallas")
+@pytest.mark.parametrize("kernel,ok", [
+    ("auto", True), ("xla", True), ("pallas", False), ("extract", False),
+])
+def test_kernel_option_accepts_auto_and_xla(kernel, ok):
+    """``kernel`` keeps only the values that select something: 'auto'
+    (the fused GPU kernel where it applies) and 'xla'; both work with
+    every precision and with a mesh."""
     import jax
 
+    if not ok:
+        with pytest.raises(ValueError, match="unknown kernel"):
+            RetrievalEngine(kernel=kernel)
+        return
+    for precision in ("f32", "bf16", "int8", "auto"):
+        assert RetrievalEngine(precision=precision, kernel=kernel).kernel == kernel
     devs = jax.devices()
-    if len(devs) > 1:
-        import numpy as _np
-
-        mesh = jax.sharding.Mesh(_np.array(devs), ("data",))
-        with pytest.raises(ValueError, match="single-chip"):
-            RetrievalEngine(kernel="pallas", mesh=mesh)
+    mesh = jax.sharding.Mesh(np.array(devs), ("data",))
+    assert RetrievalEngine(kernel=kernel, mesh=mesh).precision == "int8"
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
@@ -740,28 +746,30 @@ def test_incremental_append_declined_on_empty_pack(db_path, unit_rows):
     db.close()
 
 
-def test_keyed_dispatch_not_refused_for_wide_corpora():
-    """Corpora past 2^24 padded rows keep the keyed fast path (round-2
-    VERDICT: they fell back to lax.top_k selection, ~12x slower at
-    b=256); v1 pallas paths stay gated off.  Dispatch predicate only —
-    the full wide interpret run is tests/test_pallas_extract.py's opt-in
-    slow test."""
+def test_fused_route_not_refused_for_wide_corpora():
+    """Corpora past 2^24 padded rows keep the fused GPU kernel (its rows
+    travel as int32, so no f32-index ceiling applies), and the rescore
+    bound is the precision's own term at any size."""
     from types import SimpleNamespace
 
-    from svs_tpu.engine.index import WIDE_INDEX_MIN_ROWS, RetrievalEngine
-    from svs_tpu.ops.pallas_extract import KEY_EPS
+    import jax.numpy as jnp
 
+    from svs_tpu.engine.index import WIDE_INDEX_MIN_ROWS
+    from svs_tpu.ops.fused_topk import BLOCK_N, fused_route
+
+    n_pad = WIDE_INDEX_MIN_ROWS + 2 * BLOCK_N
+    assert fused_route("gpu", 256, n_pad, 1536, 400, jnp.bfloat16)
+    assert fused_route("gpu", 256, n_pad, 1536, 400, jnp.int8)
+    assert not fused_route("cpu", 256, n_pad, 1536, 400, jnp.bfloat16)
     eng = RetrievalEngine(precision="bf16")
-    n_pad = WIDE_INDEX_MIN_ROWS + 2 * 8192  # > 2^24, block-aligned
     fake = SimpleNamespace(
         n_padded=n_pad, dim_padded=1536, n_valid=n_pad - 100,
-        precision="bf16", scale_max=0.0,
+        precision="bf16", scale_max=0.0, dim=1536,
     )
-    assert eng._keyed_selection_possible(fake, 256, 400)
-    # and the rescore bound carries the KEY_EPS term for it
     q = np.zeros((4, 1536), np.float32)
-    fake.dim = 1536
-    assert (eng.prescore_eps(fake, q, 400) >= KEY_EPS).all()
+    np.testing.assert_allclose(
+        eng.prescore_eps(fake, q, 400), 2.0**-8 * (1 + 2.0**-9) + 3e-5
+    )
 
 
 def test_device_rescore_mirror_and_exact_scores(db_path, unit_rows):
@@ -933,104 +941,74 @@ def test_device_rescore_f32_reuses_pack(db_path, unit_rows):
     db.close()
 
 
-def test_guarded_dispatch_and_eps(monkeypatch):
-    """v3 (guarded) dispatch: picked at the headline shapes, feeds the
-    GUARD grid term into prescore_eps, turns off past its candidate
-    ceiling (where v2 takes over), and returns exact winners on a
-    well-separated corpus."""
-    from svs_tpu.engine.packing import LARGE_ROW_MULTIPLE
-    from svs_tpu.ops import pallas_extract as pe
-
-    n = 16 * pe.FUSED_BLOCK_N  # the nb >= 16 dispatch floor
-    d = 128
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_fused_dispatch_and_eps(fused_interpret, precision):
+    """The fused route: taken for bf16/int8 packs of supported shapes
+    under kernel='auto', never under kernel='xla' or for f32 packs; the
+    error bound is the same on every route; and it returns exact winners
+    on a well-separated corpus."""
+    n, d = 4096, 128
     m = np.zeros((n, d), dtype=np.float32)
     m[:, 1] = 1.0
-    hot_rows = np.arange(32) * 4000 + 11  # distinct, spread over blocks
+    hot_rows = np.arange(32) * 120 + 11  # distinct, spread over tiles
     hot = (0.9 - np.arange(32) * 0.01).astype(np.float32)  # >> bf16 ulp
     m[hot_rows, 0] = hot
     m[hot_rows, 1] = np.sqrt(1.0 - hot**2)
     ids = np.arange(1, n + 1, dtype=np.int64)
-    corpus = pack_corpus(
-        m, ids, version=1, precision="bf16",
-        row_multiple=LARGE_ROW_MULTIPLE, dim_multiple=d,
-    )
-    eng = RetrievalEngine(precision="bf16")
-    nq = pe.GUARD_MIN_BATCH
-    q = np.zeros((nq, d), dtype=np.float32)
+    corpus = pack_corpus(m, ids, version=1, precision=precision, dim_multiple=d)
+    calls = fused_interpret
+    eng = RetrievalEngine(precision=precision)
+    xla = RetrievalEngine(precision=precision, kernel="xla")
+    q = np.zeros((4, d), dtype=np.float32)
     q[:, 0] = 1.0
-
-    assert eng._guarded_selection_possible(corpus, nq, 400)
-    # batch floor: single-query search stays on the (measured-faster) v2
-    assert not eng._guarded_selection_possible(corpus, 1, 400)
-    # past the v3 candidate pool ceiling the guarded path turns off (the
-    # widen ladder escalates to coverage-proving kernels)
-    assert not eng._guarded_selection_possible(corpus, nq, 600)
-    # eps ladder: same candidate count, v3-eligible corpus vs one below
-    # the nb>=16 dispatch floor where only v2 runs — the bound term must
-    # be the guarded grid (2^-11) there and the keyed grid (2^-12) here
-    small = pack_corpus(
-        m[: 8 * pe.FUSED_BLOCK_N], ids[: 8 * pe.FUSED_BLOCK_N],
-        version=1, precision="bf16",
-        row_multiple=LARGE_ROW_MULTIPLE, dim_multiple=d,
+    # f32 packs stay on XLA (the kernel's f32 dot has no tensor cores)
+    assert eng._fused_route(corpus, 4, 40) is (precision != "f32")
+    assert not xla._fused_route(corpus, 4, 40)
+    np.testing.assert_array_equal(
+        eng.prescore_eps(corpus, q, 40), xla.prescore_eps(corpus, q, 40)
     )
-    assert not eng._guarded_selection_possible(small, nq, 100)
-    assert eng._keyed_selection_possible(small, nq, 100)
-    assert eng._guarded_selection_possible(corpus, nq, 100)
-    e_v3 = eng.prescore_eps(corpus, q, 100)[0]
-    e_v2 = eng.prescore_eps(small, q, 100)[0]
-    assert np.isclose(e_v3 - e_v2, 2.0**-11 - 2.0**-12)
-
-    calls = []
-    real = pe.score_topk_fused3_packed
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
-
-    monkeypatch.setattr(pe, "score_topk_fused3_packed", spy)
     vals, rows = eng.topk(corpus, q, 40)
-    assert calls, "guarded kernel was not dispatched"
+    assert bool(calls) is (precision != "f32")
     got_ids = [int(corpus.emb_ids[r]) for r in rows[0][:32]]
     want_ids = [int(r) + 1 for r in hot_rows]  # descending-score order
     assert got_ids == want_ids
+    xv, xr = xla.topk(corpus, q, 40)
+    np.testing.assert_array_equal(rows[:, :32], xr[:, :32])
 
 
-def test_guarded_margin_fires_on_hidden_cluster():
-    """An adversarial cluster v3 provably cannot cover: the boundary
-    slot's hidden-score bound must make the kb margin check fail (the
-    widen signal) — this is the soundness hinge of the guarded design."""
-    from svs_tpu.engine.packing import LARGE_ROW_MULTIPLE
-    from svs_tpu.ops import pallas_extract as pe
-
-    n = 16 * pe.FUSED_BLOCK_N
-    d = 128
+@pytest.mark.parametrize("route", ["xla", "fused"])
+def test_margin_fires_on_hidden_cluster(request, route):
+    """A cluster packed inside one bf16 ulp: the bf16 prescore cannot
+    order it, so after the f32 rescore the k-th value must fail the
+    margin check against the boundary prescore (the widen signal) — on
+    every prescore route.  This is the soundness hinge of the rescore."""
+    n, d = 4096, 128
     m = np.zeros((n, d), dtype=np.float32)
     m[:, 1] = 1.0
-    n_cl = 2000
-    cl_rows = np.arange(n_cl) * 60  # spread: ~15 per 1024-lane subtile
+    n_cl = 1000
+    cl_rows = np.arange(n_cl) * 4  # spread over every tile
     scores = (0.7 + np.arange(n_cl) * 1e-6).astype(np.float32)
     m[cl_rows, 0] = scores
     m[cl_rows, 1] = np.sqrt(1.0 - scores**2)
     ids = np.arange(1, n + 1, dtype=np.int64)
-    corpus = pack_corpus(
-        m, ids, version=1, precision="bf16",
-        row_multiple=LARGE_ROW_MULTIPLE, dim_multiple=d,
-    )
+    corpus = pack_corpus(m, ids, version=1, precision="bf16", dim_multiple=d)
+    if route == "fused":
+        calls = request.getfixturevalue("fused_interpret")
     eng = RetrievalEngine(precision="bf16")
-    nq = pe.GUARD_MIN_BATCH
-    q = np.zeros((nq, d), dtype=np.float32)
+    q = np.zeros((4, d), dtype=np.float32)
     q[:, 0] = 1.0
     k = 10
     c = eng.candidate_count(k)
-    assert eng._guarded_selection_possible(corpus, nq, c)
     pre_vals, rows = eng.topk(corpus, q, c)
+    if route == "fused":
+        assert calls
     eps = eng.prescore_eps(corpus, q, c)
     # f32 rescore of the candidates, as _finalize_batch does
     orig = corpus.emb_ids[rows[0]] - 1  # ids are insertion order here
     exact = (m[orig] @ q[0]).astype(np.float32)
     v_k = np.sort(exact)[::-1][k - 1]
     assert v_k < pre_vals[0, -1] + eps[0], (
-        "margin must fire so the kb ladder widens off v3"
+        "margin must fire so the kb ladder widens"
     )
 
 
@@ -1116,7 +1094,7 @@ def test_oversized_gather_falls_back_to_host(db_path, unit_rows, monkeypatch):
     """Widen retries can reach widths where the on-device [B, C, d] f32
     candidate gather alone would crowd out HBM — those must route to the
     host fallback, not OOM the chip."""
-    from svs_tpu.engine import index as eng_mod
+    import svs_tpu.utils.device_memory as device_memory
 
     m = unit_rows(300, 24)
     db = _fill(db_path, m)
@@ -1124,7 +1102,7 @@ def test_oversized_gather_falls_back_to_host(db_path, unit_rows, monkeypatch):
     corpus = eng.ensure_fresh(db)
     assert corpus.dev_rescore is not None
     q = unit_rows(4, 24)
-    monkeypatch.setattr(eng_mod, "_DEVICE_GATHER_MAX_BYTES", 1)
+    monkeypatch.setattr(device_memory, "gather_budget", lambda *a: 1)
     assert eng.topk_final(corpus, q, 5, 40) is None
     vals, rows, exact = eng.topk_with_rescore(corpus, q, 40)
     assert exact is None  # host path took over
@@ -1135,60 +1113,40 @@ def test_oversized_gather_falls_back_to_host(db_path, unit_rows, monkeypatch):
     db.close()
 
 
-def test_keyed_pairwise_dispatch_eps_and_verified_result(monkeypatch, unit_rows):
-    """Keyed pairwise: the dispatch predicate and ``pairwise_eps`` share
-    one condition (KEY_EPS appears exactly when the keyed pass can run),
-    the engine routes through ``pairwise_candidates_keyed``, and the
-    candidates + boundary bound satisfy the margin contract that makes
-    the KB's rescore provably exact."""
-    from svs_tpu.ops import pairwise as pw
-    from svs_tpu.ops.pallas_extract import KEY_EPS
-
-    n_pad, n_valid, d = 4096, 600, 32
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_pairwise_eps_and_verified_result(unit_rows, precision):
+    """``pairwise_eps`` is the storage precision's own term, and the
+    blocked candidates + their boundary satisfy the margin contract that
+    makes the KB's pairwise rescore provably exact."""
+    n_valid, d = 600, 32
     m = unit_rows(n_valid, d)
     ids = np.arange(1, n_valid + 1, dtype=np.int64)
-    corpus = pack_corpus(
-        m, ids, version=1, precision="bf16",
-        row_multiple=n_pad, dim_multiple=d,
-    )
-    eng = RetrievalEngine(precision="bf16")
-    assert eng._keyed_pairwise_possible(corpus)
-    # a 256-multiple pack is not 4096-aligned: keyed off, eps drops KEY_EPS
-    small = pack_corpus(m, ids, version=1, precision="bf16")
-    assert not eng._keyed_pairwise_possible(small)
-    assert np.isclose(
-        eng.pairwise_eps(corpus) - eng.pairwise_eps(small), KEY_EPS
-    )
-    # rescore-off engines never take the quantized path
-    eng_raw = RetrievalEngine(precision="bf16", rescore=False)
-    assert not eng_raw._keyed_pairwise_possible(corpus)
-
-    calls = []
-    real = pw.pairwise_candidates_keyed
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
-
-    monkeypatch.setattr(pw, "pairwise_candidates_keyed", spy)
+    corpus = pack_corpus(m, ids, version=1, precision=precision)
+    eng = RetrievalEngine(precision=precision)
+    bf16_term = 2.0**-8 * (1.0 + 2.0**-9) + 3e-5
+    if precision == "f32":
+        assert eng.pairwise_eps(corpus) == 1e-4
+    elif precision == "bf16":
+        assert eng.pairwise_eps(corpus) == bf16_term
+    else:
+        assert eng.pairwise_eps(corpus) > bf16_term
     k, c = 20, 84  # the KB's first-attempt widening for n=20
     vals, rows, cols = eng.pairwise_topk(corpus, c)
-    assert calls, "keyed pairwise pass was not dispatched"
     # the margin contract, exactly as _finalize_pairwise runs it:
     # rescore candidates in f32, take top-k, k-th must clear the
     # boundary + eps; then the result IS the exhaustive oracle's top-k.
     exact = np.einsum("ij,ij->i", m[rows], m[cols])
     order = top_k_numpy(exact, k)
     v_k = order[-1][0]
-    assert v_k >= float(vals[-1]) + eng.pairwise_eps(corpus), (
-        "margin must clear on a well-separated random corpus"
-    )
-    got = [(int(rows[i]), int(cols[i])) for _, i in order]
-    iu = np.triu_indices(n_valid, 1)
-    flat = (m @ m.T)[iu]
-    oracle = top_k_numpy(flat, k)
-    want = [(int(iu[0][i]), int(iu[1][i])) for _, i in oracle]
-    assert got == want
+    if v_k >= float(vals[-1]) + eng.pairwise_eps(corpus):
+        got = [(int(rows[i]), int(cols[i])) for _, i in order]
+        iu = np.triu_indices(n_valid, 1)
+        flat = (m @ m.T)[iu]
+        oracle = top_k_numpy(flat, k)
+        want = [(int(iu[0][i]), int(iu[1][i])) for _, i in oracle]
+        assert got == want
+    else:
+        assert precision != "f32", "f32 prescores must clear the margin"
 
 
 def test_pairwise_rescore_device_matches_numpy(db_path, unit_rows):
@@ -1267,7 +1225,7 @@ def test_pairwise_width_hint_learns_and_decays():
 def test_auto_precision_resolution():
     """'auto' = fastest storage whose RESULTS stay exact: int8 under the
     verified device rescore, bf16 wherever the int8 path doesn't apply
-    (rescore off, host rescore, pallas-forced kernel, dim-sharded mesh).
+    (rescore off, host rescore, dim-sharded mesh).
     The requested value is preserved for introspection."""
     eng = RetrievalEngine(precision="auto")
     assert eng.precision == "int8"
@@ -1277,7 +1235,7 @@ def test_auto_precision_resolution():
         RetrievalEngine(precision="auto", device_rescore="host").precision
         == "bf16"
     )
-    assert RetrievalEngine(precision="auto", kernel="pallas").precision == "bf16"
+    assert RetrievalEngine(precision="auto", kernel="xla").precision == "int8"
     # explicit precisions resolve to themselves
     for p in ("f32", "bf16", "int8"):
         eng = RetrievalEngine(precision=p)
@@ -1334,11 +1292,11 @@ def test_auto_precision_end_to_end(db_path, unit_rows):
 def test_xla_ladder_streams_past_scores_budget(
     db_path, unit_rows, monkeypatch
 ):
-    """When the materializing [B, N] f32 score matrix would blow the HBM
-    budget (a compile-time OOM at [256, 2^24] on a 16 GB chip), the XLA
-    ladder bottom must dispatch the streaming exact path — and the
-    results must be oracle-identical."""
+    """When the materializing [B, N] f32 score matrix would exceed the
+    device's scores budget, the XLA path must dispatch the streaming
+    exact path — and the results must be oracle-identical."""
     import svs_tpu.ops.topk as topk_mod
+    import svs_tpu.utils.device_memory as device_memory
 
     m = unit_rows(300, 24)
     db = _fill(db_path, m)
@@ -1349,7 +1307,7 @@ def test_xla_ladder_streams_past_scores_budget(
         calls.append(1)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(topk_mod, "FALLBACK_SCORES_BUDGET", 0)
+    monkeypatch.setattr(device_memory, "scores_budget", lambda *a: 0)
     monkeypatch.setattr(topk_mod, "streaming_score_topk_packed", spy)
     q = unit_rows(3, 24)
     for precision in ("bf16", "int8"):

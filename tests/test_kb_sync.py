@@ -63,20 +63,24 @@ def test_retrieve_precisions_agree(db_path, precision):
     kb.close()
 
 
-def test_retrieve_via_pallas_kernel(db_path):
-    """kernel='pallas' routes retrieval through the streaming VMEM kernel
-    (interpreter mode on the CPU backend) — same exact results."""
-    kb = KB(db_path, make_angle_embedder(), kernel="pallas")
+def test_retrieve_via_fused_kernel(db_path, fused_interpret):
+    """kernel='auto' routes retrieval through the fused GPU kernel where
+    it applies (run by the Pallas interpreter here) — same exact
+    results as the XLA route."""
+    texts = [f"angle:{deg}" for deg in range(0, 360, 6)]
+    texts += [f"angle:{d / 6:.4f}" for d in range(1, 2160) if d % 36]
+    kb = KB(db_path, make_angle_embedder(), kernel="auto")
     with kb.bulk_add_docs() as add:
-        for deg in range(0, 360, 6):
-            add(f"angle:{deg}")
-    # corpus pads to 256 rows (>= 2 tiles is required) -> add more docs
-    with kb.bulk_add_docs() as add:
-        for deg in range(0, 360, 1):
-            add(f"angle:{deg}.5")
-    hits = kb.retrieve("angle:12", 3)
-    assert hits[0]["doc"]["text"] in ("angle:12", "angle:11.5", "angle:12.5")
+        for t in texts:
+            add(t)
+    queries = ["angle:12", "angle:204"]
+    hits = kb.retrieve_batch(queries, 3)  # batched: the fused route
+    assert fused_interpret, "fused kernel never dispatched"
     kb.close()
+    xla = KB(db_path, make_angle_embedder(), kernel="xla")
+    assert xla.retrieve_batch(queries, 3) == hits
+    assert [h[0]["doc"]["text"] for h in hits] == queries
+    xla.close()
 
 
 def test_retrieve_batch(db_path):

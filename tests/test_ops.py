@@ -323,147 +323,37 @@ import os
 
 
 
-def test_select_rows_topm_extraction_route_matches_oracle(monkeypatch):
-    """The per-row selection the blocked pairwise path runs per scan step,
-    through the REAL extraction kernel (interpret mode), including the
-    NEG_INF width-padding branch (n not a block multiple).  This is the
-    default-suite coverage of the routing behind the 100k-pairs headline
-    (the full blocked run in interpret mode takes minutes and stays
-    opt-in below)."""
-    import numpy as np
-    import svs_tpu.ops.pairwise as pairwise_mod
-    from svs_tpu.ops import pallas_extract
-    from svs_tpu.ops.pairwise import select_rows_topm
-    from svs_tpu.ops.pallas_extract import BLOCK_N
+def test_escalation_widths_for_headline_shapes():
+    """Pin the per-row width ladder of the 100k-doc pairwise headline
+    (k=10,000 over 100k rows): start at 64, escalate through 1024, end
+    exact at k; small corpora go straight to the exact width."""
+    from svs_tpu.engine.packing import LARGE_ROW_MULTIPLE
+    from svs_tpu.ops.pairwise import escalation_widths
 
-    calls = []
-    orig = pallas_extract.extract_topk
-
-    def spy(scores, k, interpret=False):
-        calls.append((tuple(scores.shape), k, interpret))
-        return orig(scores, k, interpret=interpret)
-
-    monkeypatch.setattr(pallas_extract, "extract_topk", spy)
-
-    rng = np.random.default_rng(11)
-    n = BLOCK_N - 500  # pads up to one block inside select_rows_topm
-    scores = rng.normal(size=(16, n)).astype(np.float32)
-    vals, idx = select_rows_topm(jnp.asarray(scores), 7, force_interp=True)
-    assert calls and calls[0][0] == (16, BLOCK_N), calls
-    for b in range(16):
-        oracle = top_k_numpy(scores[b], 7)
-        assert list(np.asarray(idx)[b]) == [i for _, i in oracle]
-        np.testing.assert_allclose(
-            np.asarray(vals)[b], [s for s, _ in oracle], atol=2e-6
-        )
-
-
-def test_extraction_route_chosen_for_headline_shapes():
-    """Pin the dispatch: the shapes the 100k-doc pairwise headline runs
-    (row blocks of 4096, width 100k padded to the kernel block, the
-    escalation widths) must route through the extraction kernel on TPU,
-    and small widths must not."""
-    from svs_tpu.ops.pairwise import escalation_widths, extraction_route_chosen
-    from svs_tpu.ops.pallas_extract import BLOCK_N
-
-    n_pad_100k = ((100_000 + BLOCK_N - 1) // BLOCK_N) * BLOCK_N
-    widths = escalation_widths(10_000, n_pad_100k, n_pad_100k)
-    assert widths[0] == 64
-    # first escalation stage (where ~all rows resolve) uses the kernel;
-    # the rare wide retries exceed the kernel's k <= tiles*H ceiling and
-    # correctly fall back to lax.top_k
-    assert extraction_route_chosen(n_pad_100k, 4096, widths[0])
-    assert not extraction_route_chosen(n_pad_100k, 4096, widths[1])
-    # 1M-doc single-KB pairwise block width
-    assert extraction_route_chosen(63 * BLOCK_N, 4096, 64)
-    # narrow blocks stay on lax.top_k (padding would dominate)
-    assert not extraction_route_chosen(4096, 256, 64)
-
-
-def test_pairwise_blocked_drives_selection_through_shared_seam(
-    unit_rows, monkeypatch
-):
-    """Every per-row selection in the blocked pairwise pass flows through
-    ``select_rows_topm`` (the one seam shared with the extraction
-    kernel), with the expected [block_rows, n_padded] shapes — and the
-    merged result stays exact when that seam returns oracle values."""
-    import numpy as np
-    import svs_tpu.ops.pairwise as pairwise_mod
-
-    seen = []
-    orig = pairwise_mod.select_rows_topm
-
-    def spy(scores, m, force_interp=None):
-        seen.append((tuple(scores.shape), m))
-        return orig(scores, m, force_interp=force_interp)
-
-    monkeypatch.setattr(pairwise_mod, "select_rows_topm", spy)
-
-    n_valid, n_pad, blk = 700, 1024, 512
-    m = unit_rows(n_valid, 16)
-    padded = np.zeros((n_pad, 128), np.float32)
-    padded[:n_valid, :16] = m
-    vals, rows, cols = pairwise_topk_blocked(
-        jnp.asarray(padded), jnp.int32(n_valid), 9, block_rows=blk
-    )
-    assert seen and all(s == ((blk, n_pad), 9) for s in seen[:2]), seen
-    oracle = top_pairs_numpy(m @ m.T, 9)
-    assert [(r, c) for r, c in zip(rows, cols)] == [
-        (r, c) for _, r, c in oracle
+    n_pad_100k = -(-100_000 // LARGE_ROW_MULTIPLE) * LARGE_ROW_MULTIPLE
+    assert escalation_widths(10_000, n_pad_100k, n_pad_100k) == [
+        64, 1024, 10_000
     ]
+    assert escalation_widths(9, 1024, 1024) == [9]
 
 
-def test_select_rows_topm_extraction_route_miniature(monkeypatch):
-    """Default-suite representative execution of the pairwise
-    extraction routing (``select_rows_topm`` -> pad columns to the
-    kernel block -> ``extract_topk`` under interpret): a handful of
-    rows over one 8192-column block runs in seconds, vs the weekly
-    full-corpus drive below (minutes at [4096, 8192]).  Route-pinned:
-    the dispatch predicate must actually choose extraction here."""
-    import svs_tpu.ops.pairwise as pairwise_mod
-    from svs_tpu.ops.pairwise import extraction_route_chosen, select_rows_topm
-
-    monkeypatch.setattr(pairwise_mod, "_FORCE_EXTRACT_INTERPRET", True)
-    rows, n, m = 8, 9000, 9
-    assert extraction_route_chosen(n, rows, m)
-    rng = np.random.default_rng(5)
-    scores = (rng.random((rows, n)) * 2.0 - 1.0).astype(np.float32)
-    vals, idx = select_rows_topm(jnp.asarray(scores), m)
-    vals, idx = np.asarray(vals), np.asarray(idx)
-    for r in range(rows):
-        oracle = np.sort(scores[r])[::-1][:m]
-        np.testing.assert_allclose(vals[r], oracle, atol=2.0**-12)
-        assert (idx[r] < n).all(), "column padding leaked"
-        np.testing.assert_allclose(
-            scores[r][idx[r]], oracle, atol=2.0**-12
-        )
-
-
-@pytest.mark.skipif(
-    not os.environ.get("SVS_TPU_SLOW_TESTS"),
-    reason="interpret-mode pairwise extraction takes minutes; "
-    "set SVS_TPU_SLOW_TESTS=1 to run",
+@pytest.mark.parametrize(
+    "n_valid,n_pad,blk,k",
+    [(700, 1024, 512, 9), (1000, 1024, 256, 40), (257, 512, 256, 5)],
 )
-def test_pairwise_blocked_extraction_path_matches_oracle(
-    unit_rows, monkeypatch
+def test_pairwise_blocked_padded_matches_oracle(
+    unit_rows, n_valid, n_pad, blk, k
 ):
-    """Blocked pairwise with block-aligned corpora routes per-row selection
-    through the extraction kernel; top pairs must match the oracle.
-    (On the CPU backend the path is gated off for speed; forced here.)"""
-    import svs_tpu.ops.pairwise as pairwise_mod
-    from svs_tpu.ops.pallas_extract import BLOCK_N
-
-    monkeypatch.setattr(pairwise_mod, "_FORCE_EXTRACT_INTERPRET", True)
-
-    n_pad = BLOCK_N  # one extraction block; 4 scan steps
-    n_valid = n_pad - 77
+    """Blocked pairwise over a zero-padded pack (padding rows and
+    columns masked by n_valid, several row blocks) returns exactly the
+    oracle's top pairs."""
     m = unit_rows(n_valid, 16)
     padded = np.zeros((n_pad, 128), np.float32)
     padded[:n_valid, :16] = m
     vals, rows, cols = pairwise_topk_blocked(
-        jnp.asarray(padded), jnp.int32(n_valid), 7, block_rows=4096
+        jnp.asarray(padded), jnp.int32(n_valid), k, block_rows=blk
     )
-    oracle = top_pairs_numpy(m @ m.T, 7)
+    oracle = top_pairs_numpy(m @ m.T, k)
     assert [(r, c) for r, c in zip(rows, cols)] == [
         (r, c) for _, r, c in oracle
     ]
@@ -551,7 +441,7 @@ def test_stress_oracle_micro(monkeypatch, tmp_path):
     monkeypatch.delenv("SVS_STRESS_SMOKE", raising=False)
     import importlib
 
-    import benchmarks.tpu_stress_oracle as stress
+    import benchmarks.stress_oracle as stress
 
     importlib.reload(stress)  # re-read the MICRO env gate
     monkeypatch.setattr(stress, "WORK", tmp_path)
@@ -565,7 +455,7 @@ def test_stress_oracle_micro(monkeypatch, tmp_path):
 )
 def test_stress_oracle_smoke(monkeypatch, tmp_path):
     """The randomized end-to-end oracle stress (benchmarks/
-    tpu_stress_oracle.py) in its smoke configuration: drives the full
+    stress_oracle.py) in its smoke configuration: drives the full
     KB retrieve pipeline (prescore kernels, device/host rescore, margin
     widen, hints, hydration) against the exhaustive NumPy oracle with
     planted ties / near-ties / hot-subtile adversaries."""
@@ -576,164 +466,11 @@ def test_stress_oracle_smoke(monkeypatch, tmp_path):
     monkeypatch.setenv("SVS_STRESS_SMOKE", "1")
     import importlib
 
-    import benchmarks.tpu_stress_oracle as stress
+    import benchmarks.stress_oracle as stress
 
     importlib.reload(stress)  # re-read the SMOKE env gate
     monkeypatch.setattr(stress, "WORK", tmp_path)
     stress.main(seed=1)
-
-
-# --- keyed pairwise candidate pass ------------------------------------------
-
-
-def test_pairwise_keys_extract_matches_key_oracle():
-    """The raw kernel: per-512-subtile top-8 PACKED keys of a score
-    matrix must equal the NumPy key oracle bit-for-bit (same f32 quantize
-    formula), dead out-lanes must be KEY_DEAD, and PAIR_MASKED sentinels
-    must decode to exactly -2.0."""
-    from svs_tpu.ops import pallas_extract as pe
-
-    rng = np.random.default_rng(3)
-    r, n = 8, 2 * pe.PAIR_BLOCK_N
-    scores = (rng.random((r, n)) * 2.0 - 1.0).astype(np.float32)
-    scores[:, 512:1024] = pe.PAIR_MASKED  # subtile 1 fully masked
-    out = np.asarray(
-        pe.pairwise_keys_extract(jnp.asarray(scores), interpret=True)
-    )
-    lane = np.arange(pe.FUSED_SUBTILE, dtype=np.float32)
-    for blk in range(n // pe.PAIR_BLOCK_N):
-        tile = out[:, blk * 128 : (blk + 1) * 128]
-        assert (tile[:, pe.PAIR_KEYS :] == pe.KEY_DEAD).all()
-        for s in range(pe.PAIR_NSUB):
-            c0 = blk * pe.PAIR_BLOCK_N + s * pe.FUSED_SUBTILE
-            sub = scores[:, c0 : c0 + pe.FUSED_SUBTILE]
-            keys = (
-                np.floor(
-                    (sub + np.float32(pe.KEY_BIAS))
-                    * np.float32(pe.KEY_QSCALE)
-                )
-                * np.float32(pe.FUSED_SUBTILE)
-                + lane
-            ).astype(np.float32)
-            want = -np.sort(-keys, axis=1)[:, : pe.EXTRACT_H]
-            got = tile[:, s * pe.EXTRACT_H : (s + 1) * pe.EXTRACT_H]
-            np.testing.assert_array_equal(got, want, err_msg=f"b{blk} s{s}")
-    # sentinel decode: a masked subtile's keys decode to exactly -2.0
-    dec = np.asarray(pe._key_vals(jnp.asarray(out[:, 8:16])))  # cols 512..1023
-    assert (dec == pe.PAIR_MASKED).all()
-
-
-@pytest.mark.parametrize("precision", ["f32", "int8"])
-def test_pairwise_candidates_keyed_soundness(unit_rows, precision):
-    """THE keyed-pairwise contract _finalize_pairwise stands on: every
-    pair NOT among the returned candidates scores (in the prescore
-    domain) at most ``vals[-1] + KEY_EPS``, candidate (row, col) tuples
-    are valid/unique upper-triangle, and each candidate's decoded value
-    sits within KEY_EPS of its exact prescore."""
-    from svs_tpu.ops.pairwise import keyed_pairwise_route, pairwise_candidates_keyed
-    from svs_tpu.ops.pallas_extract import KEY_EPS
-    from svs_tpu.ops.quant import quantize_rows_int8
-
-    n_pad, n_valid, d, c = 4096, 500, 32, 50
-    m = unit_rows(n_valid, d)
-    docs = np.zeros((n_pad, d), np.float32)
-    docs[:n_valid] = m
-    assert keyed_pairwise_route(n_pad, 256, c)
-    if precision == "int8":
-        data, scales = quantize_rows_int8(jnp.asarray(docs))
-        dq = np.asarray(data, np.float32) * np.asarray(scales)[:, None]
-        S = dq[:n_valid] @ dq[:n_valid].T  # the prescore domain
-    else:
-        data, scales = jnp.asarray(docs), None
-        S = m @ m.T
-    vals, rows, cols, ok = pairwise_candidates_keyed(
-        data, jnp.int32(n_valid), c, block_rows=256, row_scales=scales
-    )
-    assert ok
-    vals, rows, cols = map(np.asarray, (vals, rows, cols))
-    assert (cols > rows).all() and (cols < n_valid).all() and (rows >= 0).all()
-    pairs = set(zip(rows.tolist(), cols.tolist()))
-    assert len(pairs) == c  # no duplicates
-    iu = np.triu_indices(n_valid, 1)
-    hidden = np.ones(len(iu[0]), bool)
-    pair_pos = {(int(a), int(b)): i for i, (a, b) in enumerate(zip(*iu))}
-    for p in pairs:
-        hidden[pair_pos[p]] = False
-    # soundness bound (1e-5 covers the f32 matmul associativity slack)
-    assert S[iu][hidden].max() <= vals[-1] + KEY_EPS + 1e-5
-    # decode accuracy (all but the boundary slot, which may be inflated
-    # to the hidden-pair bound by design)
-    exact_cand = S[rows[: c - 1], cols[: c - 1]]
-    np.testing.assert_array_less(exact_cand - vals[: c - 1], KEY_EPS + 1e-5)
-    np.testing.assert_array_less(vals[: c - 1] - exact_cand, KEY_EPS + 1e-5)
-
-
-def test_pairwise_candidates_keyed_ok_false_when_pool_starved(unit_rows):
-    """Fewer live pairs than requested candidates: ok must come back
-    False (the engine then uses the exact blocked path)."""
-    from svs_tpu.ops.pairwise import pairwise_candidates_keyed
-
-    n_pad, d = 4096, 16
-    m = unit_rows(3, d)  # 3 docs -> 3 pairs
-    docs = np.zeros((n_pad, d), np.float32)
-    docs[:3] = m
-    vals, rows, cols, ok = pairwise_candidates_keyed(
-        jnp.asarray(docs), jnp.int32(3), 10, block_rows=256
-    )
-    assert not ok
-
-
-def test_pairwise_candidates_keyed_ok_false_past_key_horizon(unit_rows):
-    """Non-unit-norm embedders can push pair dots past the packed-key
-    f32 rounding horizon (|score| ~2.9), corrupting lane bits AND the
-    hidden-pair bound.  The runtime range guard (mirroring the retrieval
-    keyed kernels') must flip ok so the engine takes the exact path —
-    the margin proof would otherwise certify wrong pairs as exact."""
-    from svs_tpu.ops.pairwise import pairwise_candidates_keyed
-
-    n_pad, n_valid, d, c = 4096, 64, 16, 10
-    m = unit_rows(n_valid, d) * 2.0  # norms ~2
-    m[0] = 0.0
-    m[1] = 0.0
-    m[0, 0] = 2.0
-    m[1, 0] = 2.0  # pair (0,1) dots at exactly 4.0 — past the horizon
-    docs = np.zeros((n_pad, d), np.float32)
-    docs[:n_valid] = m
-    vals, rows, cols, ok = pairwise_candidates_keyed(
-        jnp.asarray(docs), jnp.int32(n_valid), c, block_rows=256
-    )
-    assert not ok
-    # the same shape at unit norm routes fine (the guard is not a
-    # blanket refusal)
-    docs[:n_valid] = m / 2.0
-    _, _, _, ok2 = pairwise_candidates_keyed(
-        jnp.asarray(docs), jnp.int32(n_valid), c, block_rows=256
-    )
-    assert ok2
-
-
-def test_keyed_pairwise_route_pins_headline_shapes():
-    """Dispatch predicate pinned at the shapes that matter: the 100k-doc
-    headline (padded to 16384-multiples) and the 1M ceiling route keyed;
-    256-multiple small packs and >1M-row pools do not."""
-    from svs_tpu.engine.packing import LARGE_ROW_MULTIPLE
-    from svs_tpu.ops.pairwise import keyed_pairwise_route, keyed_row_width
-
-    n_100k = ((100_000 + LARGE_ROW_MULTIPLE - 1) // LARGE_ROW_MULTIPLE) * LARGE_ROW_MULTIPLE
-    assert n_100k == 114_688
-    assert keyed_pairwise_route(n_100k, 256, 12_500)
-    assert keyed_row_width(12_500, n_100k) == 64
-    # widened retries move to the wider per-row width, still routed
-    assert keyed_pairwise_route(n_100k, 256, 50_000)
-    assert keyed_row_width(50_000, n_100k) == 512
-    # ...and past the c ceiling the exact path takes over (the hidden
-    # tail bound is c-independent: more widening could never converge)
-    assert not keyed_pairwise_route(n_100k, 256, 200_000)
-    # 1M padded rows: the last supported pool size
-    assert keyed_pairwise_route(1 << 20, 256, 12_500)
-    assert not keyed_pairwise_route((1 << 20) + LARGE_ROW_MULTIPLE, 256, 100)
-    # small packs pad to 256-multiples -> not 4096-aligned -> exact path
-    assert not keyed_pairwise_route(100_096, 256, 1000)
 
 
 # --- streaming exact fallback (memory-bounded scoring) ----------------------
@@ -790,19 +527,41 @@ def test_streaming_score_topk_int8_matches_materializing(unit_rows):
     np.testing.assert_allclose(np.asarray(got_v), np.asarray(ref_v), rtol=1e-6)
 
 
-def test_fused2_fallback_streams_past_scores_budget(monkeypatch):
-    """Over the budget, the keyed kernels' in-graph exact fallback must
-    stream (a materializing [B, N] f32 branch is a 17 GB allocation at
-    2^24 rows that fails COMPILE) — and stay exact when coverage fails
-    (all-identical rows tie every key, forcing the fallback branch)."""
-    import svs_tpu.ops.pallas_extract as px
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_fused_fallback_streams_past_scores_budget(monkeypatch, precision):
+    """Over the device's scores budget, the fused kernel's in-graph
+    exact fallback must stream (``lax.cond`` allocates the untaken
+    branch too) — and stay exact when coverage fails: a cluster of 12
+    winners in the first tile exceeds its TILE_H extraction width."""
+    import svs_tpu.ops.topk as topk_mod
+    import svs_tpu.utils.device_memory as device_memory
+    from svs_tpu.ops import fused_topk as ft
 
-    monkeypatch.setattr(px, "FALLBACK_SCORES_BUDGET", 0)
-    n, d, k = 2 * px.FUSED_BLOCK_N, 128, 10
-    u = np.zeros(d, np.float32)
-    u[0] = 1.0
-    docs = jnp.asarray(np.tile(u, (n, 1)), jnp.bfloat16)
-    q = jnp.asarray(u[None, :])
-    vals, idx = px.fused2_topk(docs, q, jnp.int32(n - 5), k, interpret=True)
-    assert np.asarray(idx)[0].tolist() == list(range(k))
-    np.testing.assert_allclose(np.asarray(vals)[0], 1.0, atol=1e-2)
+    calls = []
+    real = topk_mod.streaming_score_topk
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(device_memory, "scores_budget", lambda *a: 0)
+    monkeypatch.setattr(topk_mod, "streaming_score_topk", spy)
+    n, d, k = 4 * ft.BLOCK_N, 128, 10
+    m = np.zeros((n, d), np.float32)
+    m[:, 1] = 1.0
+    hot = (0.9 - np.arange(12) * 0.02).astype(np.float32)
+    m[:12, 0] = hot
+    m[:12, 1] = np.sqrt(1.0 - hot**2)
+    q = np.zeros((1, d), np.float32)
+    q[0, 0] = 1.0
+    if precision == "int8":
+        docs, scales = quantize_rows_int8(jnp.asarray(m))
+    else:
+        docs, scales = jnp.asarray(m, jnp.bfloat16), None
+    packed = ft.fused_topk_packed(
+        docs, jnp.asarray(q), jnp.int32(n - 5), k, row_scales=scales,
+        interpret=True,
+    )
+    assert calls, "streaming fallback not traced"
+    idx = np.asarray(packed)[0, k:].astype(int)
+    assert idx.tolist() == list(range(k))

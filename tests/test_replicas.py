@@ -9,7 +9,7 @@ including batches smaller than the replica count and splits that cross
 kernel-dispatch boundaries.
 
 Reference counterpart: none (single process, one ``np.dot`` hot loop,
-``svs/kb.py:1185``); this is net-new TPU design per SURVEY.md section 2.3.
+``svs/kb.py:1185``); this is net-new design per SURVEY.md section 2.3.
 """
 
 import numpy as np
@@ -137,10 +137,9 @@ def test_replica_clones_and_recloning(db_path, unit_rows):
 
 
 def test_replica_eps_matches_slice_dispatch(db_path, unit_rows):
-    """prescore_eps is evaluated at the REPLICA batch size: a full batch
-    big enough for the guarded kernels split into slices below their
-    minimum batch must get the slice's (smaller) bound, not the full
-    batch's."""
+    """prescore_eps over a replicated batch equals a plain engine's bound
+    on each replica's slice (the bound depends on the storage precision
+    alone, so every slice's dispatch is covered)."""
     m = unit_rows(300, 24)
     db = _fill(db_path, m)
     rep = ReplicaEngine(precision="bf16", n_replicas=4)
@@ -220,11 +219,34 @@ def test_replica_pool_shutdown_on_close(tmp_path):
     assert not replica_threads()
 
 
+def test_replica_close_stops_secondary_uploaders(tmp_path, monkeypatch):
+    """KB.close() must stop every replica's background uploads, not only
+    the primary's: a secondary's mirror upload still running at
+    interpreter exit aborts the process."""
+    kb = KB(
+        tmp_path / "s.sqlite",
+        make_onehot_embedder(),
+        force_fresh_db=True,
+        replicas=3,
+    )
+    with kb.bulk_add_docs() as add:
+        for i in range(8):
+            add(f"vec:{i}")
+    kb.retrieve_batch(["vec:1", "vec:2", "vec:3"], 1)
+    stopped = []
+    for eng in kb.engine._secondaries:
+        real = eng.shutdown
+        monkeypatch.setattr(
+            eng, "shutdown", lambda real=real: (stopped.append(1), real())
+        )
+    kb.close()
+    assert len(stopped) == len(kb.engine._secondaries) == 2
+
+
 def test_replica_host_fallback_never_resplits(db_path, unit_rows):
     """The parent engine's host-rescore fallback must not re-enter the
     replica splitter (virtual dispatch): each slice runs single-chip at
-    ITS batch size — the size prescore_eps was evaluated at — or the
-    margin proof could drop a kernel quantization term (unsound)."""
+    ITS batch size instead of splitting the work twice."""
     m = unit_rows(300, 16)
     db = _fill(db_path, m)
     rep = ReplicaEngine(

@@ -211,47 +211,19 @@ def test_adversarial_pairwise_cluster_is_exact(db_path, caplog):
     kb.close()
 
 
-def test_guarded_kernel_cluster_exact_end_to_end(db_path, caplog, monkeypatch):
-    """Full KB drive of the guarded (v3) selection path: an adversarial
-    within-ulp cluster that v3 provably cannot cover, through
-    ``kb.retrieve`` — the hidden-score bound must fail the margin, the
-    ladder must widen off v3, and the final result must match the f32
-    oracle (reference guarantee: ``svs/kb.py:1185``).
-
-    The real ``fused3_supported`` needs a 16-block corpus (131k docs —
-    too slow to build through SQLite in a unit test); a relaxed-nb twin
-    drops the profitability floor while keeping every shape/pool rule,
-    so the identical kernel + dispatch + widen machinery runs at 17k
-    docs."""
-    from svs_tpu.ops import pallas_extract as pe
-
-    def small_ok(n, d, b, c):
-        nb = n // pe.FUSED_BLOCK_N
-        return (
-            n % pe.FUSED_BLOCK_N == 0
-            and d % pe.DIM_CHUNK == 0
-            and b <= pe.FUSED_MAX_BATCH
-            and nb >= 2
-            and 0 < c <= min(pe.GUARD_MAX_C, (nb - 1) * pe.GUARD_KEYS)
-        )
-
-    monkeypatch.setattr(pe, "fused3_supported", small_ok)
-    # the engine's non-mesh dispatch now splits the structural check
-    # (fused3_shape_ok) from the batch-crossover prior (GUARD_MIN_BATCH,
-    # overridable by calibration — see engine.calibrate); relax both so
-    # the b=1 drive below still lands on the guarded kernel
-    monkeypatch.setattr(pe, "fused3_shape_ok", small_ok)
-    monkeypatch.setattr(pe, "GUARD_MIN_BATCH", 1)
-    v3_calls = []
-    real_v3 = pe.score_topk_fused3_packed
-
-    def spy(*a, **kw):
-        v3_calls.append(1)
-        return real_v3(*a, **kw)
-
-    monkeypatch.setattr(pe, "score_topk_fused3_packed", spy)
-
-    n_cluster, n_bg, k = 1200, 16000, 10
+@pytest.mark.parametrize("route", ["xla", "fused"])
+def test_kernel_cluster_exact_end_to_end(db_path, caplog, request, route):
+    """Full KB drive of each prescore route: an adversarial within-ulp
+    cluster that the bf16 prescore cannot order, through ``kb.retrieve_batch``
+    — the margin must fail, the ladder must widen, and the final result
+    must match the f32 oracle (reference guarantee: ``svs/kb.py:1185``).
+    On the fused route the cluster also fills the first tiles past their
+    extraction width, so the in-graph coverage fallback runs too."""
+    calls = (
+        request.getfixturevalue("fused_interpret") if route == "fused"
+        else None
+    )
+    n_cluster, n_bg, k = 1200, 4000, 10
     dim = 16
     scores = 0.7 + np.arange(n_cluster, dtype=np.float64) * 1e-6  # ascending
     cluster = _cluster_vectors(scores, dim=dim)
@@ -282,9 +254,12 @@ def test_guarded_kernel_cluster_exact_end_to_end(db_path, caplog, monkeypatch):
             add(f"b:{i}")
 
     with caplog.at_level(logging.INFO, logger="svs_tpu.kb"):
-        hits = kb.retrieve("probe", k)
+        # a batch of two: solo queries take XLA on every platform
+        hits, twin = kb.retrieve_batch(["probe", "probe"], k)
+    assert twin == hits
 
-    assert v3_calls, "guarded kernel never dispatched"
+    if calls is not None:
+        assert calls, "fused kernel never dispatched"
     oracle = [f"c:{n_cluster - 1 - j}" for j in range(k)]  # best stored last
     assert [h["doc"]["text"] for h in hits] == oracle
     expect = [float(np.float32(s)) for s in scores[::-1][:k]]
@@ -294,15 +269,11 @@ def test_guarded_kernel_cluster_exact_end_to_end(db_path, caplog, monkeypatch):
 
 
 def test_prescore_eps_recomputed_at_each_widen(db_path, monkeypatch):
-    """REGRESSION (round-4 advisor, high): the margin bound must be
-    recomputed at the CURRENT candidate count on every widen retry.
-    The calibrated v2/v3 dispatch is per c-bucket
-    (``RetrievalEngine._calib_winner``), so a widened retry can land on
-    the coarser guarded kernel (GUARD_KEY_EPS = 2^-11) while a bound
-    computed once at the initial c carried only KEY_EPS (2^-12) — the
-    margin proof could then pass falsely.  Drive an adversarial cluster
-    that must widen and assert the bound was re-derived at every width
-    the ladder visited."""
+    """The margin bound is recomputed at the CURRENT candidate count on
+    every widen retry (the bound is the engine's to define, and a retry
+    may dispatch a different prescore route than the first attempt).
+    Drive an adversarial cluster that must widen and assert the bound
+    was re-derived at every width the ladder visited."""
     n_cluster, k = 200, 10
     scores = 0.7 + np.arange(n_cluster, dtype=np.float64) * 1e-6
     vectors = _cluster_vectors(scores)

@@ -120,22 +120,15 @@ def test_sharded_k_larger_than_shard(devices_available, unit_rows):
     assert list(np.asarray(idx)[0]) == oracle
 
 
-def test_sharded_per_shard_extraction_matches_oracle(unit_rows):
-    """Per-shard selection routes through the extraction kernel when the
-    local shard is block-aligned; the merged global top-k must still match
-    the single-device oracle exactly."""
-    import jax
-    import numpy as np
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from svs_tpu.ops.pallas_extract import BLOCK_N
-    from svs_tpu.parallel.mesh import default_mesh
-    from svs_tpu.parallel.sharded import sharded_score_topk
-    from svs_tpu.utils.topk_np import top_k_numpy
+def test_sharded_per_shard_selection_matches_oracle(unit_rows):
+    """Block-aligned shards with trailing padding (n_valid masks by
+    GLOBAL row): the merged global top-k of the per-shard selections must
+    match the single-device oracle exactly."""
+    from svs_tpu.engine.packing import LARGE_ROW_MULTIPLE
 
     devices = jax.devices()[:2]
     mesh = default_mesh(devices=devices)
-    n = 2 * BLOCK_N  # one extraction block per shard
+    n = 2 * LARGE_ROW_MULTIPLE  # one large block per shard
     m = unit_rows(n, 16)
     padded = np.zeros((n, 128), np.float32)
     padded[:, :16] = m
@@ -144,8 +137,7 @@ def test_sharded_per_shard_extraction_matches_oracle(unit_rows):
     q[:, :16] = m[[7, 1000, 20000]][:, :16]
     n_valid = n - 57
     vals, idx = sharded_score_topk(
-        docs, None, jax.numpy.asarray(q), jax.numpy.int32(n_valid), 9,
-        mesh=mesh,
+        docs, None, jnp.asarray(q), jnp.int32(n_valid), 9, mesh=mesh,
     )
     exact = m[:n_valid] @ m[[7, 1000, 20000]].T
     for b in range(3):
@@ -198,123 +190,19 @@ def test_sharded_pairwise_escalates_and_subblocks(devices_available, unit_rows):
     }
     assert must_have <= got
 
-def test_sharded_keyed_candidate_contract(unit_rows):
-    """Keyed per-shard selection (fused2 inside shard_map): merged global
-    candidates must decode within KEY_EPS below truth and cover every doc
-    clearly above the k-th returned value — the same contract the engine's
-    verified rescore consumes on a single chip."""
-    from svs_tpu.ops.pallas_extract import FUSED_BLOCK_N, KEY_EPS
-    from svs_tpu.parallel.mesh import default_mesh
-
-    devices = jax.devices()[:2]
-    mesh = default_mesh(devices=devices)
-    n = 2 * 2 * FUSED_BLOCK_N  # two fused blocks per shard
-    m = unit_rows(n, 16)
-    padded = np.zeros((n, 128), np.float32)
-    padded[:, :16] = m
-    docs = jax.device_put(
-        jnp.asarray(padded, jnp.bfloat16), NamedSharding(mesh, P("data", None))
-    )
-    q = np.zeros((8, 128), np.float32)
-    q[:, :16] = m[[3, 9000, 17000, 25000, 31000, 50, 16500, 16900]][:, :16]
-    nv = n - 123
-    k = 40
-    vals, idx = sharded_score_topk(
-        docs, None, jnp.asarray(q), jnp.int32(nv), k, mesh=mesh, keyed=True
-    )
-    vals, idx = np.asarray(vals), np.asarray(idx)
-    assert (idx >= 0).all() and (idx < nv).all()
-    # bf16 storage: candidate decode error = bf16 rounding + key grid
-    eps = 2.0**-8 * (1 + 2.0**-9) + KEY_EPS + 3e-5
-    exact = (m[:nv].astype(np.float32) @ m.astype(np.float32)[
-        [3, 9000, 17000, 25000, 31000, 50, 16500, 16900]].T).T
-    for b in range(8):
-        true_of_returned = exact[b][idx[b]]
-        assert (vals[b] <= true_of_returned + eps).all()
-        assert (true_of_returned <= vals[b] + eps).all()
-        v_k = vals[b][k - 1]
-        must_have = set(np.nonzero(exact[b] > v_k + eps)[0].tolist())
-        assert must_have <= set(idx[b].tolist())
-        assert len(set(idx[b].tolist())) == k
-
-
-def test_engine_mesh_dispatches_keyed_kernels(unit_rows, monkeypatch):
-    """The engine's mesh branch must pick the keyed per-shard kernels for
-    supported shapes (VERDICT r2 gap: the flagship kernels were bypassed
-    under shard_map), with KEY_EPS accounted in prescore_eps, and the
-    rescored result must match the oracle exactly."""
-    from svs_tpu.engine.index import RetrievalEngine
-    from svs_tpu.engine.packing import pack_corpus, pad_queries
-    from svs_tpu.ops import pallas_extract as pe
-    from svs_tpu.ops.pallas_extract import KEY_EPS
-    from svs_tpu.parallel.mesh import default_mesh
-    from svs_tpu.utils.topk_np import top_k_numpy
-
-    calls = []
-    orig = pe.fused2_topk
-
-    def spy(docs, q, nv, k, interpret=False):
-        calls.append(tuple(docs.shape))
-        return orig(docs, q, nv, k, interpret=interpret)
-
-    monkeypatch.setattr(pe, "fused2_topk", spy)
-    # new mesh object -> fresh lru_cache entry in _build_sharded_topk, so
-    # the spy is captured at trace time
-    mesh = default_mesh(devices=jax.devices()[:2])
-
-    n = 33_000
-    m = unit_rows(n, 16)
-    eng = RetrievalEngine(precision="bf16", mesh=mesh)
-    corpus = pack_corpus(
-        m,
-        np.arange(1, n + 1, dtype=np.int64),
-        version=1,
-        precision="bf16",
-        placement=eng._placement(),
-        row_multiple=eng._row_multiple(n),
-        dim_multiple=eng._dim_multiple(),
-    )
-    assert corpus.n_padded % 2 == 0
-    c = eng.candidate_count(10)
-    assert eng._keyed_selection_possible(corpus, 8, c)
-    # KEY_EPS must be inside the verified-rescore bound for this dispatch
-    q = m[:8].astype(np.float32)
-    assert (eng.prescore_eps(corpus, q, c) >= KEY_EPS).all()
-    vals, rows = eng.topk(corpus, q, c)
-    assert calls, "mesh path must route through the keyed kernel"
-    # verified rescore, as the KB does: exact f32 over the candidates
-    for b in range(8):
-        # pack rows -> matrix rows via emb_ids (packs permute at scale)
-        cand = (corpus.emb_ids[rows[b].astype(int)] - 1).astype(int)
-        exact_cand = m[cand].astype(np.float32) @ q[b]
-        order = sorted(
-            range(len(cand)), key=lambda i: (exact_cand[i], cand[i]),
-            reverse=True,
-        )
-        got = sorted(int(cand[i]) for i in order[:10])
-        oracle = sorted(i for _, i in top_k_numpy(m @ q[b], 10))
-        assert got == oracle, b
-
-
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_sharded_guarded_candidate_contract(unit_rows, precision):
-    """Guarded (v3) per-shard selection inside shard_map: merged
-    candidate values decode within GUARD_KEY_EPS below the storage-model
-    truth, and the FOLDED boundary slot (``vals[:, -1]`` = max(weakest
-    merged candidate, max over shards of per-shard hidden bounds))
-    upper-bounds every document missing from the merged set — the exact
-    composition the single-chip v3 wire carries, which the engine's
-    margin proof consumes unchanged."""
-    from svs_tpu.ops.pallas_extract import FUSED_BLOCK_N, GUARD_KEY_EPS
-    from svs_tpu.parallel.mesh import default_mesh
-
+def test_sharded_candidate_contract(unit_rows, precision):
+    """Per-shard selection inside shard_map: merged candidate values sit
+    within the precision's prescore bound of the storage-model truth, and
+    every document clearly above the k-th returned value is among them —
+    the contract the engine's verified rescore consumes."""
     devices = jax.devices()[:2]
     mesh = default_mesh(devices=devices)
-    n = 2 * 2 * FUSED_BLOCK_N  # two fused blocks per shard
+    n = 4096
     m = unit_rows(n, 16)
     padded = np.zeros((n, 128), np.float32)
     padded[:, :16] = m
-    q_rows = [3, 9000, 17000, 25000, 31000, 50, 16500, 16900]
+    q_rows = [3, 900, 1700, 2500, 3100, 50, 1650, 4000]
     q = np.zeros((8, 128), np.float32)
     q[:, :16] = m[q_rows][:, :16]
     nv = n - 123
@@ -323,116 +211,75 @@ def test_sharded_guarded_candidate_contract(unit_rows, precision):
         di, rs = quantize_rows_int8(jnp.asarray(padded))
         docs = jax.device_put(di, NamedSharding(mesh, P("data", None)))
         scales = jax.device_put(rs, NamedSharding(mesh, P("data")))
-        # storage-model ground truth: the int8 path quantizes queries
-        # too, then scales the exact int32 dot — reproducible bit-exact
-        # on the host up to the f32 multiply rounding
         qi, qs = quantize_rows_int8(jnp.asarray(q))
         model = (
             np.asarray(qi, np.int32) @ np.asarray(di, np.int32).T
         ).astype(np.float32) * np.asarray(rs)[None, :] * np.asarray(qs)[:, None]
-        eps = GUARD_KEY_EPS + 1e-4
+        eps = 1e-4
     else:
         docs = jax.device_put(
             jnp.asarray(padded, jnp.bfloat16),
             NamedSharding(mesh, P("data", None)),
         )
         scales = None
-        model = (
-            m[:, :16].astype(np.float32) @ m[q_rows][:, :16].T
-        ).T.astype(np.float32)
-        # bf16 storage: rounding of both sides + key grid + f32 cushion
-        eps = 2.0**-8 * (1 + 2.0**-9) + GUARD_KEY_EPS + 3e-5
+        model = (m[:, :16] @ m[q_rows][:, :16].T).T.astype(np.float32)
+        eps = 2.0**-8 * (1 + 2.0**-9) + 3e-5
     vals, idx = sharded_score_topk(
-        docs, scales, jnp.asarray(q), jnp.int32(nv), k,
-        mesh=mesh, guarded=True,
+        docs, scales, jnp.asarray(q), jnp.int32(nv), k, mesh=mesh
     )
     vals, idx = np.asarray(vals), np.asarray(idx)
     assert (idx >= 0).all() and (idx < nv).all()
     for b in range(8):
         assert len(set(idx[b].tolist())) == k
         model_of_returned = model[b][idx[b]]
-        # all but the folded boundary slot decode within eps of truth
-        assert (vals[b][:-1] <= model_of_returned[:-1] + eps).all()
-        assert (model_of_returned[:-1] <= vals[b][:-1] + eps).all()
-        # the boundary slot is >= its own candidate's decoded value
-        # (fold can only raise it) ...
-        boundary = vals[b][-1]
-        assert model_of_returned[-1] <= boundary + eps
-        # ... and THE contract: no document outside the merged set may
-        # exceed the boundary
-        mask = np.ones(nv, dtype=bool)
-        mask[idx[b]] = False
-        hidden_max = model[b][:nv][mask].max()
-        assert hidden_max <= boundary + eps, (b, hidden_max, boundary)
+        assert (np.abs(vals[b] - model_of_returned) <= eps).all()
+        must_have = set(np.nonzero(model[b][:nv] > vals[b][-1] + eps)[0])
+        assert must_have <= set(idx[b].tolist())
 
 
-def test_engine_mesh_dispatches_guarded_kernels(unit_rows, monkeypatch):
-    """b >= GUARD_MIN_BATCH on a mesh engine must route through the
-    guarded (v3) per-shard kernels — the fastest batched path per chip —
-    with GUARD_KEY_EPS accounted in prescore_eps and the folded boundary
-    feeding the margin proof; the rescored result must match the oracle
-    exactly.  The nb>=16-per-shard floor in fused3_supported is a
-    dispatch-profitability choice (kernels are shape-correct for
-    nb >= 2); it is relaxed here so interpret mode stays CI-sized."""
+@pytest.mark.parametrize("precision,b", [
+    ("bf16", 8), ("bf16", 32), ("int8", 8), ("int8", 32),
+])
+def test_engine_mesh_dispatch_verified_result(
+    unit_rows, monkeypatch, precision, b
+):
+    """The engine's mesh branch routes through ``sharded_score_topk``
+    with the same error bound as one device (the bound depends on the
+    storage precision alone), and the rescored result matches the
+    oracle exactly."""
     from svs_tpu.engine.index import RetrievalEngine
     from svs_tpu.engine.packing import pack_corpus
-    from svs_tpu.ops import pallas_extract as pe
-    from svs_tpu.ops.pallas_extract import (
-        FUSED_BLOCK_N,
-        GUARD_KEY_EPS,
-        GUARD_MIN_BATCH,
-    )
-    from svs_tpu.parallel.mesh import default_mesh
+    from svs_tpu.parallel import sharded as sharded_mod
 
     calls = []
-    orig = pe.fused3_candidates
+    real = sharded_mod.sharded_score_topk
 
-    def spy(docs, q, nv, c, interpret=False):
-        calls.append(tuple(docs.shape))
-        return orig(docs, q, nv, c, interpret=interpret)
+    def spy(*args, **kwargs):
+        calls.append(tuple(args[0].shape))
+        return real(*args, **kwargs)
 
-    real_supported = pe.fused3_supported
-
-    def relaxed(n, d, b, c):
-        return (
-            n % FUSED_BLOCK_N == 0
-            and n // FUSED_BLOCK_N >= 2
-            and real_supported(max(n, 16 * FUSED_BLOCK_N), d, b, c)
-        )
-
-    monkeypatch.setattr(pe, "fused3_candidates", spy)
-    monkeypatch.setattr(pe, "fused3_supported", relaxed)
-    # new mesh object -> fresh lru_cache entry in _build_sharded_topk, so
-    # the spy is captured at trace time
+    monkeypatch.setattr(sharded_mod, "sharded_score_topk", spy)
     mesh = default_mesh(devices=jax.devices()[:2])
-
-    # per-shard nb=4 with 100 trailing padding rows: worst shard loses
-    # one block to padding, pool (4-1)*32 = 96 >= c
-    n = 8 * FUSED_BLOCK_N - 100
+    n = 5000
     m = unit_rows(n, 16)
-    b = GUARD_MIN_BATCH
-    eng = RetrievalEngine(precision="bf16", mesh=mesh)
+    eng = RetrievalEngine(precision=precision, mesh=mesh)
+    single = RetrievalEngine(precision=precision)
     corpus = pack_corpus(
         m,
         np.arange(1, n + 1, dtype=np.int64),
         version=1,
-        precision="bf16",
+        precision=precision,
         placement=eng._placement(),
         row_multiple=eng._row_multiple(n),
         dim_multiple=eng._dim_multiple(),
     )
-    assert corpus.n_padded == 8 * FUSED_BLOCK_N
     c = eng.candidate_count(10)
-    assert eng._guarded_selection_possible(corpus, b, c)
-    # the padding-aware pool check must refuse when padding eats the
-    # worst shard's pool (here: pretend only c > pool keys fit)
-    assert not eng._guarded_selection_possible(corpus, b, 97)
     q = m[:b].astype(np.float32)
-    assert (eng.prescore_eps(corpus, q, c) >= GUARD_KEY_EPS).all()
+    np.testing.assert_array_equal(
+        eng.prescore_eps(corpus, q, c), single.prescore_eps(corpus, q, 4 * c)
+    )
     vals, rows = eng.topk(corpus, q, c)
-    assert calls, "mesh path must route through the guarded kernel"
-    from svs_tpu.utils.topk_np import top_k_numpy
-
+    assert calls, "mesh path must route through sharded_score_topk"
     for bi in range(b):
         cand = (corpus.emb_ids[rows[bi].astype(int)] - 1).astype(int)
         exact_cand = m[cand].astype(np.float32) @ q[bi]
@@ -573,7 +420,7 @@ def test_mesh_topk_final_int8_and_model_axis_policy(
 def test_sharded_streams_past_scores_budget(
     devices_available, unit_rows, monkeypatch
 ):
-    """Past the score-matrix budget, each shard's non-keyed scoring must
+    """Past the score-matrix budget, each shard's scoring must
     stream row blocks instead of materializing [B, N/D] f32 (a per-chip
     compile-time OOM at wide shapes) — with oracle-identical results."""
     import svs_tpu.ops.topk as topk_mod
@@ -585,7 +432,9 @@ def test_sharded_streams_past_scores_budget(
         calls.append(1)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(topk_mod, "FALLBACK_SCORES_BUDGET", 0)
+    import svs_tpu.utils.device_memory as device_memory
+
+    monkeypatch.setattr(device_memory, "scores_budget", lambda *a: 0)
     monkeypatch.setattr(topk_mod, "streaming_score_topk", spy)
     # lru_cache on _build_sharded_topk would replay a pre-patch trace:
     # clear it so this mesh/k combination re-traces under the spy.
