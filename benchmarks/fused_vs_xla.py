@@ -9,7 +9,10 @@ one process so both sides see the same card and clocks:
   both return the same rows;
 - ``--mode e2e``: ``KB.retrieve_batch`` through a real on-disk KB
   (``benchmarks/corpus.py``), one KB per route (``kernel='auto'`` vs
-  ``kernel='xla'``), per precision and batch.
+  ``kernel='xla'``), per precision and batch.  Each round is two
+  alternating pairs, so ``--rounds R`` gives 2R samples per side, each
+  the median of ``--reps`` calls.  Below ``FUSED_MIN_BATCH`` both KBs
+  take the same XLA route: that batch is a control for the noise.
 
 ``--sweep`` adds kernel tile configurations (block_n, num_warps,
 num_stages) to the kernel mode.  Prints one JSON line per measurement

@@ -6,10 +6,10 @@ selects with ``lax.top_k``.  At B=256 over 1M rows that matrix is 1 GB
 each way, and the selection sorts every row.  This kernel (Pallas
 through Triton) keeps the scores on chip instead:
 
-- one program per (query block, doc block) — query blocks vary fastest
-  in the launch grid, so the programs that share a doc block run
-  together and read it through L2: the corpus crosses device memory
-  about once per step at any batch;
+- one program per (query block, doc block), query blocks fastest in
+  the launch grid so that the programs sharing a doc block are
+  scheduled together (whether the corpus then crosses device memory
+  only once per step is not measured: PERF.md, open questions);
 - each program runs the whole contraction over ``d`` in a loop
   (``pl.dot`` on bf16 accumulating in f32, or on int8 accumulating in
   int32 with the query and row scales applied after), then extracts its
@@ -42,7 +42,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as pltriton
 
-from .topk import NEG_INF, pack_vals_idx
+from .topk import NEG_INF, exact_topk, pack_vals_idx
 
 #: Pallas memory-ref handle type inside kernel bodies (no public class).
 Ref = Any
@@ -260,31 +260,9 @@ def _verified_merge(
     return jax.lax.cond(covered, fast, full, None)
 
 
-def exact_topk(
-    docs: jax.Array,
-    queries: jax.Array,
-    n_valid: jax.Array,
-    k: int,
-    row_scales: Optional[jax.Array] = None,
-) -> Tuple[jax.Array, jax.Array]:
-    """The engine's plain XLA exact top-k: materializing while the
-    ``[B, N]`` f32 score matrix fits the device's scores budget,
-    streaming over row blocks past it."""
-    from ..utils.device_memory import scores_budget
-    from .topk import score_topk, streaming_score_topk
-
-    if queries.shape[0] * docs.shape[0] * 4 > scores_budget():
-        return streaming_score_topk(
-            docs, queries, n_valid, k, row_scales=row_scales
-        )
-    if row_scales is not None:
-        from .quant import score_topk_int8
-
-        return score_topk_int8(docs, row_scales, queries, n_valid, k)
-    return score_topk(docs, queries, n_valid, k)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "wide", "interpret"))
+@functools.partial(
+    jax.jit, static_argnames=("k", "wide", "budget", "interpret")
+)
 def fused_topk_packed(
     docs: jax.Array,
     queries: jax.Array,
@@ -292,12 +270,15 @@ def fused_topk_packed(
     k: int,
     row_scales: Optional[jax.Array] = None,
     wide: bool = False,
+    budget: Optional[int] = None,
     interpret: bool = False,
 ) -> jax.Array:
     """Exact masked top-``k`` through the fused kernel + verified merge,
     packed as the engine's wire (``ops.topk.pack_vals_idx``).  ``docs``
     is ``[N, d]`` bf16, or int8 with per-row ``row_scales``;
-    ``queries`` ``[B, d]`` f32.  Requires :func:`fused_supported`."""
+    ``queries`` ``[B, d]`` f32.  The fallback is
+    :func:`svs_tpu.ops.topk.exact_topk` under the scores ``budget``.
+    Requires :func:`fused_supported`."""
     b, d = queries.shape
     block_q = block_q_for(b)
     b_pad = -(-b // block_q) * block_q
@@ -320,6 +301,6 @@ def fused_topk_packed(
         ei[:b],
         k,
         TILE_H,
-        lambda: exact_topk(docs, queries, n_valid, k, row_scales=row_scales),
+        lambda: exact_topk(docs, queries, n_valid, k, row_scales, budget),
     )
     return pack_vals_idx(vals, idx, wide=wide)

@@ -244,21 +244,49 @@ def streaming_score_topk(
     return jax.lax.fori_loop(1, steps, body, (vals0, idx0))
 
 
-@functools.partial(jax.jit, static_argnames=("k", "wide"))
-def streaming_score_topk_packed(
+def exact_topk(
+    docs: jax.Array,
+    queries: jax.Array,
+    n_valid: jax.Array,
+    k: int,
+    row_scales: "jax.Array | None" = None,
+    budget: "int | None" = None,
+) -> Tuple[jax.Array, jax.Array]:
+    """THE plain XLA exact top-k over a pack (int8 corpora pass their
+    ``row_scales``): it materializes the ``[B, N]`` f32 score matrix
+    while that fits ``budget`` bytes, and streams row blocks
+    (:func:`streaming_score_topk`) past it.  ``budget`` defaults to the
+    default device's ``utils.device_memory.scores_budget``; the engine
+    passes its own device's.  Returns ``(vals f32, rows int32)``."""
+    if budget is None:
+        from ..utils import device_memory
+
+        budget = device_memory.scores_budget()
+    if queries.shape[0] * docs.shape[0] * 4 > budget:
+        return streaming_score_topk(
+            docs, queries, n_valid, k, row_scales=row_scales
+        )
+    if row_scales is not None:
+        from .quant import score_topk_int8
+
+        return score_topk_int8(docs, row_scales, queries, n_valid, k)
+    return score_topk(docs, queries, n_valid, k)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "wide", "budget"))
+def exact_topk_packed(
     docs: jax.Array,
     queries: jax.Array,
     n_valid: jax.Array,
     k: int,
     row_scales: "jax.Array | None" = None,
     wide: bool = False,
+    budget: "int | None" = None,
 ) -> jax.Array:
-    """:func:`streaming_score_topk` + result packing in one dispatch —
-    the XLA path for corpora whose ``[B, N]`` f32 score matrix exceeds
-    the device's scores budget."""
+    """:func:`exact_topk` + result packing in one dispatch — the
+    engine's XLA prescore path."""
     return pack_vals_idx(
-        *streaming_score_topk(docs, queries, n_valid, k, row_scales=row_scales),
-        wide=wide,
+        *exact_topk(docs, queries, n_valid, k, row_scales, budget), wide=wide
     )
 
 

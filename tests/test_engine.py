@@ -1301,14 +1301,14 @@ def test_xla_ladder_streams_past_scores_budget(
     m = unit_rows(300, 24)
     db = _fill(db_path, m)
     calls = []
-    real = topk_mod.streaming_score_topk_packed
+    real = topk_mod.streaming_score_topk
 
     def spy(*args, **kwargs):
         calls.append(1)
         return real(*args, **kwargs)
 
     monkeypatch.setattr(device_memory, "scores_budget", lambda *a: 0)
-    monkeypatch.setattr(topk_mod, "streaming_score_topk_packed", spy)
+    monkeypatch.setattr(topk_mod, "streaming_score_topk", spy)
     q = unit_rows(3, 24)
     for precision in ("bf16", "int8"):
         calls.clear()
@@ -1321,3 +1321,26 @@ def test_xla_ladder_streams_past_scores_budget(
             got = set(np.asarray(rows)[b].tolist())
             # candidate sets from quantized prescores: near-total overlap
             assert len(got & oracle) >= 6
+
+
+def test_prescore_budget_is_the_engines_device(db_path, unit_rows, monkeypatch):
+    """The exact path is sized by the scores budget of the device the
+    engine runs on, not by the process's first device."""
+    import jax
+
+    import svs_tpu.utils.device_memory as device_memory
+
+    seen = []
+    real = device_memory.scores_budget
+
+    def spy(device=None):
+        seen.append(device)
+        return real(device)
+
+    monkeypatch.setattr(device_memory, "scores_budget", spy)
+    dev = jax.devices()[-1]
+    db = _fill(db_path, unit_rows(40, 16))
+    eng = RetrievalEngine(precision="bf16", device=dev, kernel="xla")
+    corpus = eng.ensure_fresh(db)
+    eng.topk_with_rescore(corpus, unit_rows(2, 16), 5)
+    assert seen and all(d is dev for d in seen)

@@ -241,6 +241,29 @@ def test_engine_takes_xla_path_on_cpu(unit_rows):
     assert not RetrievalEngine(precision="bf16")._fused_route(corpus, 8, 16)
 
 
+@pytest.mark.parametrize("precision", PRECISIONS + ["f32"])
+@pytest.mark.parametrize("budget", [None, 0])
+def test_exact_topk_streams_past_budget_with_same_answer(
+    unit_rows, precision, budget
+):
+    """The one exact XLA path: within the scores budget it materializes,
+    past it it streams row blocks, and both return the materializing
+    kernels' rows and values."""
+    from svs_tpu.ops.topk import exact_topk_packed
+
+    m = unit_rows(4 * ft.BLOCK_N, 64)
+    docs, scales = _store(m, precision)
+    q = jnp.asarray(unit_rows(3, 64))
+    nv = jnp.int32(len(m) - 7)
+    k = 20
+    want = np.asarray(_xla_packed(docs, scales, q, nv, k))
+    got = np.asarray(
+        exact_topk_packed(docs, q, nv, k, row_scales=scales, budget=budget)
+    )
+    np.testing.assert_array_equal(got[:, k:], want[:, k:])
+    np.testing.assert_allclose(got[:, :k], want[:, :k], rtol=1e-6)
+
+
 # -- device-memory budgets -------------------------------------------------------
 
 
